@@ -2,25 +2,36 @@
 """Smoke-test the PyTorch/CUDA port of the reconciliation system on one GPU.
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-against its plain torch version on the card, and drives the port's main
-path — a ``SymbolStream`` served as wire frames to a ``Session`` whose
-``StreamDecoder`` wave-peels on the card — at the paper's Ethereum
-state-sync geometry (92-byte records: 20 B key + 72 B value).
+against its plain torch version on the card, and drives the port's three
+main paths at the paper's Ethereum state-sync geometry (92-byte records:
+20 B key + 72 B value): a ``SymbolStream`` served as wire frames to a
+``Session`` whose ``StreamDecoder`` wave-peels on the card; the device
+encoder's round trip; and a ``ShardedStream`` serving several replicas
+through one pipelined ``ReconcileEngine`` with batched decodes.
 
     python3 chip_smoke.py [--seed N]
 
 Phases, one line each:
   1. build the kernels, one nvcc per source, all at once
   2. each kernel against its plain version on the card, bit for bit
+     (iblt_apply over one unit and over many)
   3. one-shot decode of d = 100,000 items at m = 160,000
-  4. the slice end to end: |A| = 1,000,000 records, d = 10,000, a wire
-     session with backend="device" (the main path: launch counts are read
-     around this phase only)
+  4. main path 1: |A| = 1,000,000 records, d = 10,000, a wire session
+     with backend="device"
   5. max_diff overflow: the host fallback fires, is counted, stays exact
-  6. the kernels at the phase-3 shapes: card time, plain time, bound
-Then the card's name and power limit, the kernels JSON line and the result
-line.  Exits nonzero without CUDA, outside the repository, or on any
-failed check.
+  6. main path 2: the device encoder's round trip — encode A and B
+     (1,000,000 records each, d = 10,000) at m = 20,480 on the card,
+     subtract there, decode; A's symbols equal the host encoder's
+  7. main path 3: one 8-shard ShardedStream of the same 10⁶ records
+     serving 3 replicas (d = 10,000 each, partly shared) through one
+     pipelined ReconcileEngine; a serial rerun uses the same symbols
+  8. the kernels at the phase-3 and phase-6 shapes, and map_indices and
+     iblt_apply again at phase 7's largest wave: card time, plain time,
+     bound
+Launch counts are set to 0 just before each main path and read just after
+it.  Then the card's name and power limit, the kernels JSON line and the
+result line.  Exits nonzero without CUDA, outside the repository, or on
+any failed check.
 """
 from __future__ import annotations
 
@@ -42,13 +53,17 @@ PEAK_OPS_PER_S = 67e12      # H100 SXM float32 peak outside the tensor cores;
 #                             the integer work from below
 DEVICE = "cuda"
 # sizes: phase 2 kernel checks, phase 3 one-shot decode, phase 4 session,
-# phase 5 overflow session
+# phase 5 overflow session, phase 6 encode round trip, phase 7 sharded
+# serving
 N_MAP, M_MAPS, M_PURITY, N_APPLY, M_APPLY = (65_536, (1_000, 160_000,
                                             2_097_152), 160_000, 20_000,
                                             100_003)
+M_ENCODES, U_BATCH = (20_480, 2_097_152), 24
 D_ONE_SHOT, M_ONE_SHOT = 100_000, 160_000
 N_SESSION, D_SESSION = 1_000_000, 10_000
 N_OVERFLOW, D_OVERFLOW = 20_000, 500
+N_ENCODE, D_ENCODE, M_ENCODE = 1_000_000, 10_000, 20_480
+N_SHARDED, D_SHARDED, SHARDS, REPLICAS = 1_000_000, 10_000, 8, 3
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "map_indices": ("src/repro_torch/csrc/map_indices.cu",
                     "src/repro/kernels/map_indices.py:41"),
@@ -56,6 +71,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                     "src/repro/kernels/peel.py:78"),
     "iblt_apply": ("src/repro_torch/csrc/iblt_apply.cu",
                    "src/repro/kernels/peel.py:133"),
+    "iblt_encode": ("src/repro_torch/csrc/iblt_encode.cu",
+                    "src/repro/kernels/iblt_encode.py:69"),
 }
 
 
@@ -133,6 +150,16 @@ def reset_launches(mods) -> None:
         fn.launches = 0
 
 
+def read_launches(mods) -> dict:
+    return {fn.__name__: fn.launches for fn in mods}
+
+
+def words_on_card(records: np.ndarray) -> torch.Tensor:
+    from repro_torch.core.hashing import bytes_to_words
+    w = bytes_to_words(records, NBYTES)
+    return torch.from_numpy(w.view(np.int32)).to(DEVICE)
+
+
 def timed(fn, seconds: list):
     """``fn`` that appends its wall seconds to ``seconds`` on each call."""
     def call(*args, **kw):
@@ -164,10 +191,11 @@ def phase_build():
 def phase_kernels(rng, errs: dict) -> None:
     from repro_torch.core.hashing import DEFAULT_KEY, siphash24_pair
     from repro_torch.core.mapping import kmax
+    from repro_torch.kernels.iblt_encode import iblt_encode
     from repro_torch.kernels.map_indices import map_indices
     from repro_torch.kernels.peel import iblt_apply, purity_scan
-    from repro_torch.kernels.ref import (iblt_apply_ref, map_indices_ref,
-                                         purity_ref)
+    from repro_torch.kernels.ref import (iblt_apply_ref, iblt_encode_ref,
+                                         map_indices_ref, purity_ref)
     key = DEFAULT_KEY
     cases = 0
     # A: N_MAP items, L in {1, 8, 23}, three prefix lengths
@@ -211,13 +239,43 @@ def phase_kernels(rng, errs: dict) -> None:
     idx, chk = map_indices(items, K=kmax(mp), m=m, nbytes=NBYTES, key=key)
     sides = torch.from_numpy(rng.integers(-1, 2, size=N_APPLY,
                                           dtype=np.int32)).to(DEVICE)
-    got = iblt_apply(items, idx, chk, sides, m=m, m_out=mp)
-    want = iblt_apply_ref(items, idx, chk, sides, m=m, m_out=mp)
+    one = (torch.zeros(N_APPLY, dtype=torch.int32, device=DEVICE),
+           torch.tensor([m], dtype=torch.int32, device=DEVICE))
+    got = iblt_apply(items, idx, chk, sides, *one, mp=mp)
+    want = iblt_apply_ref(items, idx, chk, sides, *one, mp=mp)
     for gg, w in zip(got, want):
         e = max_abs_err(gg, w)
         check(e == 0, f"iblt_apply: max |err| {e}")
         errs["iblt_apply"] = max(errs["iblt_apply"], e)
         check(bool((gg[m:] == 0).all()), "iblt_apply wrote rows >= m")
+    cases += 1
+    # D: the encoder's accumulation, at the phase-6 prefix and at 2**21
+    for m in M_ENCODES:
+        idx, chk = map_indices(items, K=kmax(m), m=m, nbytes=NBYTES, key=key)
+        got = iblt_encode(items, idx, chk, m=m)
+        want = iblt_encode_ref(items, idx, chk, m=m)
+        for gg, w in zip(got, want):
+            e = max_abs_err(gg, w)
+            check(e == 0, f"iblt_encode m={m}: max |err| {e}")
+            errs["iblt_encode"] = max(errs["iblt_encode"], e)
+        cases += 1
+    # C over U units end to end, chains at the shared mp, ragged prefixes
+    # (one empty), as the batched decode calls it
+    U, mp = U_BATCH, ((M_APPLY + 255) // 256) * 256
+    m_units = torch.from_numpy(rng.integers(0, mp + 1, size=U,
+                                            dtype=np.int32)).to(DEVICE)
+    m_units[0], m_units[1] = 0, mp
+    unit = torch.from_numpy(rng.integers(0, U, size=N_APPLY,
+                                         dtype=np.int32)).to(DEVICE)
+    idx, chk = map_indices(items, K=kmax(mp), m=mp, nbytes=NBYTES, key=key)
+    got = iblt_apply(items, idx, chk, sides, unit, m_units, mp=mp)
+    want = iblt_apply_ref(items, idx, chk, sides, unit, m_units, mp=mp)
+    for gg, w in zip(got, want):
+        e = max_abs_err(gg, w)
+        check(e == 0, f"iblt_apply over {U} units: max |err| {e}")
+        errs["iblt_apply"] = max(errs["iblt_apply"], e)
+        check(gg.shape[0] == U * mp and bool((gg[:mp] == 0).all()),
+              "iblt_apply wrote into an empty unit")
     cases += 1
     say(f"phase 2 kernels vs plain: {cases} cases bit-equal "
         f"(max |err| {errs})")
@@ -238,7 +296,7 @@ def phase_one_shot(rng, kernels):
     t0 = time.perf_counter()
     res = decode_device(*args, nbytes=NBYTES, device=DEVICE)
     dec_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = read_launches(kernels)
     want = as_set(bytes_to_words(a, NBYTES), np.ones(len(a))) | \
         as_set(bytes_to_words(b, NBYTES), -np.ones(len(b)))
     check(res.success and not res.overflow, "one-shot decode failed")
@@ -295,7 +353,7 @@ def phase_session(rng, kernels) -> dict:
     finally:
         ops.decode_device = real
     session_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = read_launches(kernels)
     check(as_set(rep.only_remote) ==
           as_set(bytes_to_words(recs[n - d // 2: n], NBYTES)),
           "session: wrong remote-only records")
@@ -338,6 +396,169 @@ def phase_overflow(rng) -> None:
         f"{session.host_fallbacks}, exact")
 
 
+def phase_encode(rng, kernels) -> tuple[dict, torch.Tensor]:
+    """Main path 2: device encode → subtract on the card → device decode."""
+    from repro_torch.core import encode, kmax
+    from repro_torch.core.hashing import bytes_to_words
+    from repro_torch.kernels.ops import (decode_device, device_symbols_to_host,
+                                         encode_device)
+    n, d, m = N_ENCODE, D_ENCODE, M_ENCODE
+    recs = random_records(rng, n + d // 2)
+    a = recs[:n]
+    b = np.concatenate([recs[: n - d // 2], recs[n:]])
+    ta, tb = words_on_card(a), words_on_card(b)
+    reset_launches(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sa, ca, na = encode_device(ta, m=m, nbytes=NBYTES, device=DEVICE)
+    sb, cb, nb = encode_device(tb, m=m, nbytes=NBYTES, device=DEVICE)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = decode_device(sa ^ sb, ca ^ cb, na - nb, nbytes=NBYTES,
+                        device=DEVICE)
+    dec_s = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel never launched on the encode path: {launches}")
+    t0 = time.perf_counter()
+    host = encode(a, NBYTES, m)
+    host_s = time.perf_counter() - t0
+    dev = device_symbols_to_host(sa, ca, na, NBYTES)
+    for f in ("sums", "checks", "counts"):
+        check(np.array_equal(getattr(dev, f), getattr(host, f)),
+              f"device encoder differs from the host encoder in {f}")
+    want = as_set(bytes_to_words(recs[n - d // 2: n], NBYTES),
+                  np.ones(d // 2)) | \
+        as_set(bytes_to_words(recs[n:], NBYTES), -np.ones(d - d // 2))
+    check(res.success and not res.overflow, "encode round trip: decode failed")
+    check(as_set(res.items, res.sides) == want,
+          "encode round trip: wrong difference")
+    say(f"phase 6 encode round trip: n={n} d={d} m={m} K={kmax(m)} "
+        f"encode {enc_s:.3f} s for both sets on the card (host encoder "
+        f"{host_s:.1f} s for one), decode {dec_s:.3f} s in {res.rounds} "
+        f"waves; A's symbols == host encoder's, difference exact; "
+        f"launches {launches}")
+    return launches, ta
+
+
+def phase_sharded(rng, kernels) -> tuple[dict, dict]:
+    """Main path 3: one ShardedStream, REPLICAS stale replicas, one
+    pipelined engine with batched device decodes.  Also returns the
+    inputs of the wave with the most items, for phase 8."""
+    from repro_torch.core.hashing import bytes_to_words
+    from repro_torch.kernels import ops, peel
+    from repro_torch.protocol import ReconcileEngine, ShardedStream
+    n, d = N_SHARDED, D_SHARDED
+    half, step = d // 2, d // 4       # consecutive replicas share half
+    recs = random_records(rng, n + half + step * (REPLICAS - 1))
+    alice = recs[:n]
+    t0 = time.perf_counter()
+    stream = ShardedStream.from_items(alice, NBYTES, n_shards=SHARDS)
+    replicas = []
+    for r in range(REPLICAS):
+        lost = slice(n - half - r * step, n - r * step)
+        added = slice(n + r * step, n + r * step + half)
+        items = np.concatenate([recs[: lost.start], recs[lost.stop: n],
+                                recs[added]])
+        replicas.append((ShardedStream.from_items(items, NBYTES,
+                                                  n_shards=SHARDS),
+                         as_set(bytes_to_words(recs[lost], NBYTES)),
+                         as_set(bytes_to_words(recs[added], NBYTES))))
+    setup_s = time.perf_counter() - t0
+
+    def run(pipeline: bool, timers=None):
+        engine = ReconcileEngine(pipeline=pipeline)
+        sessions = [stream.session(local=local, device=DEVICE)
+                    for local, _, _ in replicas]
+        for sess in sessions:
+            if timers is not None:
+                for u in sess._shards:
+                    u.decoder.absorb = timed(u.decoder.absorb, timers[1])
+            engine.register(stream, sess, wire=True)
+        t0 = time.perf_counter()
+        reports = engine.run()
+        return engine, sessions, reports, time.perf_counter() - t0
+
+    # where the time goes: serving payloads (Alice's shard encoders),
+    # absorbing them (the replicas' encoders, subtraction, chain walks),
+    # the device decode split into dispatch and read-back
+    serve_s, absorb_s, start_s, wait_s, sizes = [], [], [], [], []
+    spans = []
+    real_payload, real_start = stream.payload, ops.decode_device_batched_start
+    real_wait = ops.PendingBatchedDecode.wait
+
+    def start(units, **kw):
+        sizes.append(len(units))
+        span = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        span[0].record()
+        pending = real_start(units, **kw)
+        span[1].record()
+        spans.append(span)
+        return pending
+
+    # the wave that recovers the most items: the inputs of its removal
+    # stage (map_indices + iblt_apply), kept for phase 8
+    real_stage2 = peel._stage2
+    wave = {}
+
+    def stage2_rec(state, rows, side, m_units, **kw):
+        if rows.numel() > wave.get("n", 0):
+            wave.update(n=rows.numel(), args=(state, rows, side, m_units),
+                        kw=kw)
+        return real_stage2(state, rows, side, m_units, **kw)
+
+    stream.payload = timed(real_payload, serve_s)
+    ops.decode_device_batched_start = timed(start, start_s)
+    ops.PendingBatchedDecode.wait = timed(real_wait, wait_s)
+    peel._stage2 = stage2_rec
+    reset_launches(kernels)
+    try:
+        engine, sessions, reports, run_s = run(True, (serve_s, absorb_s))
+    finally:
+        stream.payload = real_payload
+        ops.decode_device_batched_start = real_start
+        ops.PendingBatchedDecode.wait = real_wait
+        peel._stage2 = real_stage2
+    launches = read_launches(kernels)
+    for rep, sess, (_, remote_only, local_only) in zip(reports, sessions,
+                                                       replicas):
+        check(as_set(rep.only_remote) == remote_only,
+              "sharded: wrong remote-only records")
+        check(as_set(rep.only_local) == local_only,
+              "sharded: wrong local-only records")
+        check(sess.host_fallbacks == 0, "sharded: a shard fell back to host")
+    check(engine.dispatches == engine.ticks > 0,
+          f"dispatches {engine.dispatches} != ticks {engine.ticks}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel never launched on the sharded path: {launches}")
+    check(max(sizes) > 1 and wave, "no decode dispatch batched two units")
+    torch.cuda.synchronize()
+    device_ms = [a.elapsed_time(b) for a, b in spans]
+    decode_s = sum(start_s) + sum(wait_s)
+    hidden = max(0.0, 1 - decode_s / max(sum(device_ms) * 1e-3, 1e-9))
+    _, _, serial, serial_s = run(False)
+    check([r.symbols_used for r in serial] ==
+          [r.symbols_used for r in reports],
+          "pipelined and serial runs used different symbols")
+    used = [r.symbols_used for r in reports]
+    say(f"phase 7 sharded serving: |A|={n} S={SHARDS} replicas={REPLICAS} "
+        f"d={d} each ({half} shared with the next); exact per peer; "
+        f"symbols_used={used} overhead="
+        f"{[round(u / d, 3) for u in used]} bytes_on_wire="
+        f"{[r.bytes_received for r in reports]}; ticks={engine.ticks} "
+        f"dispatches={engine.dispatches} units/dispatch max {max(sizes)}; "
+        f"pipelined run {run_s:.2f} s = serve {sum(serve_s):.2f} s + "
+        f"absorb {sum(absorb_s):.2f} s + decode {decode_s:.3f} s "
+        f"(dispatch {sum(start_s):.3f} s, read-back {sum(wait_s):.3f} s; "
+        f"waves on the card {sum(device_ms) * 1e-3:.3f} s, hidden behind "
+        f"ingest {hidden:.3f}) + rest; serial rerun {serial_s:.2f} s "
+        f"(caches warm), same symbols_used, bytes_on_wire="
+        f"{[r.bytes_received for r in serial]}; host_fallbacks=0 (set-up "
+        f"{setup_s:.1f} s); launches {launches}")
+    return launches, wave
+
+
 def _hash_ops(L: int) -> int:
     """32-bit integer operations of one SipHash-2-4 over L words."""
     siprounds = 2 * (L // 2) + 2 + 4
@@ -350,16 +571,23 @@ def _bound(nbytes: float, ops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_times(diff, launches: dict, errs: dict) -> list:
+def phase_times(diff, enc_items, wave, paths: dict, errs: dict) -> list:
+    """The kernels at main-path shapes.  ``paths`` maps each main path to
+    its launch counts; a kernel's ``launches`` is their sum.  ``wave`` is
+    phase 7's largest wave, at which map_indices and iblt_apply are timed
+    a second time (``wave_*`` keys of their rows)."""
     from repro_torch.core.hashing import DEFAULT_KEY
     from repro_torch.core.mapping import kmax
     from repro_torch.kernels.map_indices import map_indices
     from repro_torch.kernels.ops import host_symbols_to_device
     from repro_torch.kernels.peel import (PeelState, _stage1, iblt_apply,
                                           purity_scan)
-    from repro_torch.kernels.ref import (iblt_apply_ref, map_indices_ref,
-                                         purity_ref)
+    from repro_torch.kernels.iblt_encode import iblt_encode
+    from repro_torch.kernels.ref import (iblt_apply_ref, iblt_encode_ref,
+                                         map_indices_ref, purity_ref)
     key = DEFAULT_KEY
+    launches = {name: sum(p.get(name, 0) for p in paths.values())
+                for name in KERNELS}
     sums, checks, counts = host_symbols_to_device(diff, DEVICE)
     m, L = sums.shape
     mp = ((m + 255) // 256) * 256
@@ -374,14 +602,20 @@ def phase_times(diff, launches: dict, errs: dict) -> list:
         return torch.zeros(shape, dtype=torch.int32, device=DEVICE)
 
     state = PeelState(pad(sums), pad(checks), pad(counts.reshape(m, 1)),
-                      empty(0, L), empty(0, 2), empty(0), 0, True, False, 0)
+                      empty(0, L), empty(0, 2), empty(0),
+                      empty(0).to(torch.int64), np.zeros(1, np.int64),
+                      np.zeros(1, bool), 0)
     # the first wave of the phase-3 decode: the largest map / apply inputs
-    rows, side, n_new, _ = _stage1(state, cap=mp, max_diff=mp, key=key,
-                                   nbytes=NBYTES)
+    rows, side, _, _ = _stage1(state, mp=mp, cap=mp, max_diff=mp, key=key,
+                               nbytes=NBYTES)
+    n_new = int(rows.numel())
     items, chks = state.sums[rows], state.checks[rows]
-    idx, _ = map_indices(items, K=K, m=m, nbytes=NBYTES, key=key)
+    # chains at mp, the prefix cut at m by the apply, as the decode does
+    idx, _ = map_indices(items, K=K, m=mp, nbytes=NBYTES, key=key)
     valid = int(((idx >= 0) & (idx < m)).sum())
     nonempty = int((state.counts != 0).sum())
+    one = (torch.zeros(n_new, dtype=torch.int32, device=DEVICE),
+           torch.tensor([m], dtype=torch.int32, device=DEVICE))
 
     runs = {
         "purity_scan": (
@@ -390,34 +624,91 @@ def phase_times(diff, launches: dict, errs: dict) -> list:
             _bound(mp * (L + 3) * 4 + mp * 4, nonempty * (_hash_ops(L) + 4)),
             f"mp={mp} L={L}"),
         "map_indices": (
-            lambda: map_indices(items, K=K, m=m, nbytes=NBYTES, key=key),
-            lambda: map_indices_ref(items, K=K, m=m, nbytes=NBYTES, key=key),
+            lambda: map_indices(items, K=K, m=mp, nbytes=NBYTES, key=key),
+            lambda: map_indices_ref(items, K=K, m=mp, nbytes=NBYTES, key=key),
             _bound(n_new * (L + K + 2) * 4,
-                   n_new * 2 * _hash_ops(L) + valid * 28),
-            f"n={n_new} L={L} K={K} m={m}"),
+                   n_new * 2 * _hash_ops(L)
+                   + int((idx < mp).sum()) * 28),
+            f"n={n_new} L={L} K={K} m={mp}"),
         "iblt_apply": (
-            lambda: iblt_apply(items, idx, chks, side, m=m, m_out=mp),
-            lambda: iblt_apply_ref(items, idx, chks, side, m=m, m_out=mp),
-            _bound(n_new * (L + K + 3) * 4 + mp * (L + 3) * 4,
+            lambda: iblt_apply(items, idx, chks, side, *one, mp=mp),
+            lambda: iblt_apply_ref(items, idx, chks, side, *one, mp=mp),
+            _bound(n_new * (L + K + 4) * 4 + mp * (L + 3) * 4,
                    valid * (L + 3)),
-            f"n={n_new} K={K} m={m} valid slots={valid}"),
+            f"U=1 n={n_new} K={K} m={m} mp={mp} valid slots={valid}"),
     }
+    # phase 7's largest wave: U units, chains at their shared mp, as
+    # peel._stage2 builds them
+    (w_state, w_rows, w_side, w_m_units), kw = wave["args"], wave["kw"]
+    w_mp, w_K, w_U = kw["mp"], kw["K"], w_m_units.numel()
+    w_items, w_chks = w_state.sums[w_rows], w_state.checks[w_rows]
+    w_unit = (w_rows // w_mp).to(torch.int32)
+    w_kw = dict(K=w_K, m=w_mp, nbytes=kw["nbytes"], key=kw["key"])
+    w_idx, _ = map_indices(w_items, **w_kw)
+    w_n = w_items.shape[0]
+    w_limit = w_m_units.long()[w_unit.long()][:, None]
+    w_valid = int(((w_idx >= 0) & (w_idx < w_limit)
+                   & (w_side != 0)[:, None]).sum())
+    wave_runs = {
+        "map_indices": (
+            lambda: map_indices(w_items, **w_kw),
+            lambda: map_indices_ref(w_items, **w_kw),
+            _bound(w_n * (L + w_K + 2) * 4,
+                   w_n * 2 * _hash_ops(L)
+                   + int((w_idx < w_mp).sum()) * 28),
+            f"n={w_n} L={L} K={w_K} m={w_mp}"),
+        "iblt_apply": (
+            lambda: iblt_apply(w_items, w_idx, w_chks, w_side, w_unit,
+                               w_m_units, mp=w_mp),
+            lambda: iblt_apply_ref(w_items, w_idx, w_chks, w_side, w_unit,
+                                   w_m_units, mp=w_mp),
+            _bound(w_n * (L + w_K + 4) * 4 + w_U * w_mp * (L + 3) * 4,
+                   w_valid * (L + 3)),
+            f"U={w_U} n={w_n} K={w_K} mp={w_mp} m_u="
+            f"{w_m_units.tolist()} valid slots={w_valid}"),
+    }
+    # the encoder's accumulation at the phase-6 shapes: A's 10^6 records
+    n_enc, m_enc, K_enc = enc_items.shape[0], M_ENCODE, kmax(M_ENCODE)
+    e_idx, e_chk = map_indices(enc_items, K=K_enc, m=m_enc, nbytes=NBYTES,
+                               key=key)
+    e_valid = int(((e_idx >= 0) & (e_idx < m_enc)).sum())
+    runs["iblt_encode"] = (
+        lambda: iblt_encode(enc_items, e_idx, e_chk, m=m_enc),
+        lambda: iblt_encode_ref(enc_items, e_idx, e_chk, m=m_enc),
+        _bound(n_enc * (L + K_enc + 2) * 4 + m_enc * (L + 3) * 4,
+               e_valid * (L + 3)),
+        f"n={n_enc} K={K_enc} m={m_enc} valid slots={e_valid}")
     out = []
     for name, (kern, plain, (bound_ms, bound_by), shape) in runs.items():
         for g, w in zip(outputs(kern()), outputs(plain())):
             errs[name] = max(errs[name], max_abs_err(g, w))
-        check(errs[name] == 0, f"{name} disagrees at phase-3 shapes")
-        (ms, call_ms), (plain_ms, _) = cuda_ms(kern), cuda_ms(plain, 5, 1)
+        check(errs[name] == 0, f"{name} disagrees at main-path shapes")
+        (ms, call_ms), (plain_ms, _) = cuda_ms(kern), cuda_ms(plain, 3, 1)
         source, replaces = KERNELS[name]
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": None})
-        say(f"phase 6 {name} [{shape}]: {ms:.4f} ms on the card "
+        per_path = {p: c.get(name, 0) for p, c in paths.items()}
+        say(f"phase 8 {name} [{shape}]: {ms:.4f} ms on the card "
             f"({call_ms:.4f} ms a call from Python), plain {plain_ms:.3f} "
             f"ms, bound {bound_ms:.4f} ms ({bound_by}), {launches[name]} "
-            f"launches on the main path")
+            f"launches on the main paths {per_path}")
+        if name not in wave_runs:
+            continue
+        kern, plain, (bound_ms, bound_by), shape = wave_runs[name]
+        for g, w in zip(outputs(kern()), outputs(plain())):
+            errs[name] = max(errs[name], max_abs_err(g, w))
+        check(errs[name] == 0, f"{name} disagrees at phase 7's wave")
+        (ms, call_ms), (plain_ms, _) = cuda_ms(kern), cuda_ms(plain, 3, 1)
+        out[-1].update(max_abs_err=errs[name], wave_ms=ms,
+                       wave_plain_ms=plain_ms, wave_bound_ms=bound_ms,
+                       wave_shape=shape)
+        say(f"phase 8 {name} at phase 7's largest wave [{shape}]: "
+            f"{ms:.4f} ms on the card ({call_ms:.4f} ms a call from "
+            f"Python), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
     return out
 
 
@@ -434,19 +725,22 @@ def main() -> int:
               "repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.iblt_encode import iblt_encode
     from repro_torch.kernels.map_indices import map_indices
     from repro_torch.kernels.peel import iblt_apply, purity_scan
-    kernels = (map_indices, purity_scan, iblt_apply)
+    decode = (map_indices, purity_scan, iblt_apply)
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     errs = dict.fromkeys(KERNELS, 0)
 
     phase_build()
     phase_kernels(rng, errs)
-    diff = phase_one_shot(rng, kernels)
-    launches = phase_session(rng, kernels)
+    diff = phase_one_shot(rng, decode)
+    paths = {"session": phase_session(rng, decode)}
     phase_overflow(rng)
-    rows = phase_times(diff, launches, errs)
+    paths["encode"], enc_items = phase_encode(rng, decode + (iblt_encode,))
+    paths["sharded"], wave = phase_sharded(rng, decode)
+    rows = phase_times(diff, enc_items, wave, paths, errs)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

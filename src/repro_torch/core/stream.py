@@ -91,7 +91,7 @@ class StreamDecoder:
         for a later :meth:`peel_window` / batched device decode.  Splitting
         ingest from peel is what lets a sharded session absorb every
         shard's frame first and then decode all shards in one batched
-        device call (not ported yet); plain sessions use :meth:`receive`,
+        device call; plain sessions use :meth:`receive`,
         which is ``absorb`` + peel + :meth:`mark_decoded`.
         """
         old = self.work.m
@@ -187,7 +187,8 @@ class StreamDecoder:
 
     def merge_device_result(self, res) -> None:
         """Fold a successful :func:`repro_torch.kernels.ops.decode_device`
-        outcome into host state: adopt
+        (or one unit of ``decode_device_batched``) outcome into host state:
+        adopt
         the peeled residual as ``work`` and register each newly recovered
         item with its chain advanced to the first index ≥ the prefix length
         (so later windows keep extending it).  ``res.overflow`` must be

@@ -9,8 +9,13 @@ varint of (count − round(N·ρ(i))), ~1 byte/symbol, while ``sum`` and
 :func:`encode_frames` / :func:`decode_frames` speak the self-describing
 frame: a 24-byte header ``(m, nbytes, n_items, start)`` then a columnar
 body — all sums, all checksums, all varint count deltas.  The byte layout
-is ``docs/WIRE_FORMAT.md``.  The reference's legacy stream codec and its
-sharded "RSH1" payload are not ported yet.
+is ``docs/WIRE_FORMAT.md``.
+
+:func:`encode_shard_frames` / :func:`decode_shard_frames` compose frames
+into the sharded merged payload ("RSH1"): a magic + partition header, then
+one standard frame per shard behind a shard-id'd extension header — what
+:class:`repro_torch.protocol.ShardedSession` speaks.  The reference's
+legacy stream codec is not ported.
 """
 from __future__ import annotations
 
@@ -151,3 +156,71 @@ def decode_frames(data: bytes) -> tuple[CodedSymbols, int, int]:
     exp = expected_counts(n_items, start, start + m)
     sym, _ = _unpack_body(memoryview(data), _FRAME_HDR.size, m, nbytes, exp)
     return sym, n_items, start
+
+
+# ---------------------------------------------------------------------------
+# Sharded merged payload: one message, one shard-tagged frame per shard.
+# ---------------------------------------------------------------------------
+_MERGED_MAGIC = b"RSH1"               # rateless-sharded, layout revision 1
+_MERGED_HDR = struct.Struct("<4sHH")  # magic, n_shards (total S), n_frames
+_SHARD_EXT = struct.Struct("<HHI")    # shard_id, flags (0), frame byte length
+
+
+def encode_shard_frames(frames, n_shards: int) -> bytes:
+    """Merge per-shard protocol frames into one sharded wire payload.
+
+    Parameters
+    ----------
+    frames: iterable of ``(shard_id, frame_bytes)`` where ``frame_bytes``
+        is one :func:`encode_frames` output (a self-describing window of
+        that shard's universal stream).  Settled shards are simply absent.
+    n_shards: the total shard count S of the partition — carried in the
+        outer header so a receiver can validate it against its own
+        partition before consuming any frame.
+
+    Returns the payload: outer header, then each frame prefixed with its
+    shard-id'd extension header.  Frames keep the order given.
+    """
+    frames = list(frames)
+    if not 0 < n_shards <= 0xFFFF:
+        raise ValueError(f"n_shards must be in [1, 65535], got {n_shards}")
+    parts = [_MERGED_HDR.pack(_MERGED_MAGIC, n_shards, len(frames))]
+    for shard_id, frame in frames:
+        if not 0 <= shard_id < n_shards:
+            raise ValueError(f"shard_id {shard_id} outside [0, {n_shards})")
+        parts.append(_SHARD_EXT.pack(shard_id, 0, len(frame)))
+        parts.append(frame)
+    return b"".join(parts)
+
+
+def decode_shard_frames(data: bytes):
+    """Inverse of :func:`encode_shard_frames`.
+
+    Returns ``(n_shards, [(shard_id, symbols, n_items, start), ...])`` with
+    one tuple per embedded frame, in payload order; ``n_items`` and
+    ``start`` are per shard (each shard runs its own universal stream).
+    Raises ``ValueError`` on a bad magic/version, a shard id outside the
+    declared partition, or a truncated payload.
+    """
+    if len(data) < _MERGED_HDR.size:
+        raise ValueError("truncated sharded payload (no header)")
+    magic, n_shards, n_frames = _MERGED_HDR.unpack_from(data, 0)
+    if magic != _MERGED_MAGIC:
+        raise ValueError(f"not a sharded payload (magic {magic!r})")
+    if n_shards == 0:
+        raise ValueError("sharded payload declares zero shards")
+    pos = _MERGED_HDR.size
+    out = []
+    for _ in range(n_frames):
+        if pos + _SHARD_EXT.size > len(data):
+            raise ValueError("truncated sharded payload (frame header)")
+        shard_id, _flags, length = _SHARD_EXT.unpack_from(data, pos)
+        pos += _SHARD_EXT.size
+        if shard_id >= n_shards:
+            raise ValueError(f"shard_id {shard_id} outside [0, {n_shards})")
+        if pos + length > len(data):
+            raise ValueError("truncated sharded payload (frame body)")
+        sym, n_items, start = decode_frames(data[pos: pos + length])
+        pos += length
+        out.append((shard_id, sym, n_items, start))
+    return n_shards, out

@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("map_indices", "purity_scan", "iblt_apply")
+SOURCES = ("map_indices", "purity_scan", "iblt_apply", "iblt_encode")
 # IEEE-rounded fp32 everywhere: no --use_fast_math, no FMA contraction
 # (the mapping chain must stay bit-identical with the host chain).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -43,7 +43,10 @@ SIGNATURES = {
     "purity_scan": ("purity_scan_launch",
                     [_P, _P, _P, _LL, _I, _I, _U64, _U64, _P, _P]),
     "iblt_apply": ("iblt_apply_launch",
-                   [_P, _P, _P, _P, _LL, _I, _I, _LL, _P, _P, _P, _P]),
+                   [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _LL, _P, _P, _P,
+                    _P]),
+    "iblt_encode": ("iblt_encode_launch",
+                    [_P, _P, _P, _LL, _I, _I, _LL, _P, _P, _P, _P]),
 }
 
 _loaded: dict[str, object] = {}

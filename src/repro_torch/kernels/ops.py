@@ -1,16 +1,19 @@
-"""Public device API: the decoder pipeline around the kernels.
+"""Public device API: the encoder and decoder pipelines around the kernels.
 
-Port of the decode half of ``repro/kernels/ops.py``.  ``decode_device``
-(pad → wave peeling, :mod:`.peel`) is the device counterpart of
-``repro_torch.core.peel`` and recovers the identical difference.  It runs on
-``device`` — ``"cuda"`` by default, where every wave launches the CUDA
-kernels — and raises when that device is absent; ``device="cpu"`` runs the
-same waves on the kernels' plain torch versions (what the tests use).
+Port of ``repro/kernels/ops.py``.  ``encode_device`` (map_indices →
+iblt_encode) is the device counterpart of ``repro_torch.core.encode`` and
+produces bit-identical coded symbols; ``decode_device`` (pad → wave
+peeling, :mod:`.peel`) is the counterpart of ``repro_torch.core.peel`` and
+recovers the identical difference; ``decode_device_batched`` peels U
+independent units — shards, or peer×shard pairs of the protocol engine —
+in one wave loop.  Each runs on ``device`` — ``"cuda"`` by default, where
+every step launches the CUDA kernels — and raises when that device is
+absent; ``device="cpu"`` runs the same steps on the kernels' plain torch
+versions (what the tests use).
 
 The device layout is the reference's: sums ``(m, L)`` 32-bit words,
 checks ``(m, 2)`` (hi, lo) halves, counts int32; words travel as int32 bit
-patterns.  The device encoder (``encode_device``, kernel ``iblt_encode``)
-and the batched decode are not ported yet.
+patterns.
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ from repro_torch.core.hashing import DEFAULT_KEY
 from repro_torch.core.mapping import kmax
 from repro_torch.core.symbols import CodedSymbols
 
-from .peel import peel_waves
+from .iblt_encode import iblt_encode
+from .map_indices import map_indices
+from .peel import peel_waves_batched
 
 
 def _as_i32(x, device: torch.device) -> torch.Tensor:
@@ -64,6 +69,29 @@ def host_symbols_to_device(sym: CodedSymbols, device="cuda"):
             _as_i32(sym.counts.astype(np.int32), device))
 
 
+def encode_device(items, *, m: int, nbytes: int | None = None,
+                  key=DEFAULT_KEY, K: int | None = None, block_n: int = 256,
+                  block_m: int = 256, device="cuda"):
+    """items (n, L) 32-bit words (numpy uint32 or an int32 tensor) ->
+    (sums (m, L), checks (m, 2), counts (m,)) int32 tensors on ``device``.
+
+    Kernel A maps every item, kernel D accumulates; chains are truncated at
+    ``K`` (default ``kmax(m)``, truncation probability < 1e-12), so at the
+    default the symbols equal the host ``encode``'s bit for bit.  There are
+    no pad rows — the kernels take any n — so ``block_n`` and ``block_m``
+    change nothing and stay for the reference's signature; its
+    ``interpret`` and ``mapping`` switches have no meaning here.
+    """
+    device = resolve_device(device)
+    items = _as_i32(items, device)
+    L = items.shape[1]
+    nbytes = 4 * L if nbytes is None else nbytes
+    K = kmax(m) if K is None else K
+    idxs, chks = map_indices(items, K=K, m=m, nbytes=nbytes, key=key)
+    sums, checks, counts = iblt_encode(items, idxs, chks, m=m)
+    return sums, checks, counts[:, 0]
+
+
 class DeviceDecodeResult(NamedTuple):
     """Host-materialized outcome of :func:`decode_device`."""
     items: np.ndarray     # (r, L) uint32 — recovered source symbols
@@ -75,6 +103,38 @@ class DeviceDecodeResult(NamedTuple):
     residual: CodedSymbols  # symbols after all removals
 
 
+def _empty_result(L: int, nbytes: int) -> DeviceDecodeResult:
+    return DeviceDecodeResult(
+        np.zeros((0, L), np.uint32), np.zeros(0, np.uint64),
+        np.zeros(0, np.int8), True, False, 0, CodedSymbols.zeros(0, nbytes))
+
+
+def _results(state, success, ms, mp: int, nbytes: int) -> list:
+    """One :class:`DeviceDecodeResult` per prefix length in ``ms`` (units
+    past ``len(ms)`` are padding and never read back)."""
+    items = _as_u32_np(state.rec_items)
+    rchk = _as_u32_np(state.rec_checks)
+    hashes = (rchk[:, 0].astype(np.uint64) << np.uint64(32)) | \
+        rchk[:, 1].astype(np.uint64)
+    sides = state.rec_sides.cpu().numpy().astype(np.int8)
+    units = state.rec_units.cpu().numpy()
+    out = []
+    for u, m in enumerate(ms):
+        mine = units == u        # recovery order within a unit is kept
+        rows = slice(u * mp, u * mp + m)
+        residual = device_symbols_to_host(state.sums[rows],
+                                          state.checks[rows],
+                                          state.counts[rows, 0], nbytes)
+        out.append(DeviceDecodeResult(
+            items[mine], hashes[mine], sides[mine], bool(success[u]),
+            bool(state.overflow[u]), state.rounds, residual))
+    return out
+
+
+def _tile(m: int, block_m: int) -> int:
+    return ((m + block_m - 1) // block_m) * block_m
+
+
 def decode_device(sums, checks, counts, *, nbytes: int, key=DEFAULT_KEY,
                   max_diff: int | None = None, max_rounds: int = 10_000,
                   K: int | None = None, block_n: int = 256,
@@ -83,7 +143,8 @@ def decode_device(sums, checks, counts, *, nbytes: int, key=DEFAULT_KEY,
 
     Inputs are device-layout difference symbols — sums (m, L), checks
     (m, 2), counts (m,), as numpy arrays or tensors (e.g. from
-    :func:`host_symbols_to_device`).
+    :func:`host_symbols_to_device` or an :func:`encode_device`
+    subtraction).
 
     As in the reference, the prefix is padded to ``mp``, a multiple of
     ``block_m``; ``K`` defaults to ``kmax(mp)`` (chains truncated there,
@@ -96,13 +157,9 @@ def decode_device(sums, checks, counts, *, nbytes: int, key=DEFAULT_KEY,
     sums = _as_i32(sums, device)
     m, L = sums.shape
     if m == 0:
-        return DeviceDecodeResult(
-            np.zeros((0, L), np.uint32), np.zeros(0, np.uint64),
-            np.zeros(0, np.int8), True, False, 0,
-            CodedSymbols.zeros(0, nbytes))
-    mp = ((m + block_m - 1) // block_m) * block_m
-    if K is None:
-        K = kmax(mp)
+        return _empty_result(L, nbytes)
+    mp = _tile(m, block_m)
+    K = kmax(mp) if K is None else K
     D = mp if max_diff is None else max(int(max_diff), 1)
 
     def pad(x):
@@ -110,17 +167,126 @@ def decode_device(sums, checks, counts, *, nbytes: int, key=DEFAULT_KEY,
         out[:m] = x
         return out
 
-    state, success = peel_waves(
+    state, success = peel_waves_batched(
         pad(sums), pad(_as_i32(checks, device)),
-        pad(_as_i32(counts, device).reshape(m, 1)), m=m, nbytes=nbytes,
+        pad(_as_i32(counts, device).reshape(m, 1)), m=[m], nbytes=nbytes,
         key=key, max_diff=D, K=K, max_rounds=max_rounds, block_n=block_n)
+    return _results(state, success, [m], mp, nbytes)[0]
 
-    items = _as_u32_np(state.rec_items).copy()
-    rchk = _as_u32_np(state.rec_checks)
-    hashes = (rchk[:, 0].astype(np.uint64) << np.uint64(32)) | \
-        rchk[:, 1].astype(np.uint64)
-    sides = state.rec_sides.cpu().numpy().astype(np.int8)
-    residual = device_symbols_to_host(state.sums[:m], state.checks[:m],
-                                      state.counts[:m, 0], nbytes)
-    return DeviceDecodeResult(items, hashes, sides, success, state.overflow,
-                              state.rounds, residual)
+
+class PendingBatchedDecode:
+    """A :func:`decode_device_batched_start` dispatch, before its results
+    are read back to the host.
+
+    ``ready()`` is non-blocking: on the card it queries a CUDA event
+    recorded after the last wave's work; on the CPU the work is done when
+    the dispatch returns, as for the reference on the CPU.  ``wait()``
+    materializes one :class:`DeviceDecodeResult` per unit, in input order.
+
+    On the card the dispatch still completes synchronously today: the wave
+    loop reads each wave's per-unit counts back to the host, so the event
+    has fired by the time :func:`decode_device_batched_start` returns and
+    ``ready()`` is True at once.  A wave loop without those reads is in
+    the ROADMAP queue.
+    """
+
+    __slots__ = ("_state", "_success", "_ms", "_mp", "_nbytes", "_event",
+                 "_results")
+
+    def __init__(self, state, success, ms, mp: int, nbytes: int, event=None,
+                 results=None):
+        self._state = state
+        self._success = success
+        self._ms = ms
+        self._mp = mp
+        self._nbytes = nbytes
+        self._event = event
+        self._results = results
+
+    def ready(self) -> bool:
+        """True once the results can be read without stalling."""
+        if self._results is not None or self._event is None:
+            return True
+        return self._event.query()
+
+    def wait(self) -> list[DeviceDecodeResult]:
+        """Materialize (blocking) — one result per input unit, in order."""
+        if self._results is None:
+            self._results = _results(self._state, self._success, self._ms,
+                                     self._mp, self._nbytes)
+            self._state = self._success = self._event = None
+        return self._results
+
+
+def decode_device_batched_start(units, *, nbytes: int, key=DEFAULT_KEY,
+                                max_diff: int | None = None,
+                                max_rounds: int = 10_000, K: int | None = None,
+                                block_m: int = 256,
+                                pad_units: int | None = None,
+                                device="cuda") -> PendingBatchedDecode:
+    """Dispatch the wave decode of U units at once; read back later.
+
+    ``units`` is a sequence of host :class:`CodedSymbols`, one residual
+    prefix per unit (a shard of one session or, through the protocol
+    engine, any peer×shard pair in this shape bucket).  Every unit is
+    padded to the shared tile bucket ``mp = ceil(max_u m_u / block_m) ·
+    block_m`` and the units lie end to end on the symbol axis (see
+    :mod:`.peel`); each keeps its own prefix length.
+
+    ``max_diff`` bounds each unit's recovered items *individually*; a unit
+    that trips it freezes alone and comes back with ``overflow=True`` while
+    its neighbours finish — the caller falls back to the host decoder for
+    exactly those units.  The default (``mp``) cannot overflow.
+
+    ``pad_units`` pads the unit axis with empty (m = 0) units, which find
+    nothing to peel; the reference quantizes U this way to re-use one
+    compiled program, and the port keeps the contract.
+    """
+    device = resolve_device(device)
+    U = len(units)
+    ms = [sym.m for sym in units]
+    if U == 0 or max(ms) == 0:
+        L = units[0].L if U else 0
+        return PendingBatchedDecode(None, None, ms, 0, nbytes, results=[
+            _empty_result(L, nbytes) for _ in units])
+    L = units[0].L
+    if any(sym.L != L or sym.nbytes != units[0].nbytes for sym in units):
+        raise ValueError("units must share one item geometry")
+    Up = max(U, pad_units or 0)
+    mp = _tile(max(ms), block_m)
+    K = kmax(mp) if K is None else K
+    D = mp if max_diff is None else max(int(max_diff), 1)
+    sums = np.zeros((Up, mp, L), np.uint32)
+    checks = np.zeros((Up, mp, 2), np.uint32)
+    counts = np.zeros((Up, mp, 1), np.int32)
+    for u, sym in enumerate(units):
+        sums[u, :sym.m] = sym.sums
+        checks[u, :sym.m, 0] = (sym.checks >> np.uint64(32)).astype(np.uint32)
+        checks[u, :sym.m, 1] = (sym.checks &
+                                np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        counts[u, :sym.m, 0] = sym.counts
+    state, success = peel_waves_batched(
+        _as_i32(sums.reshape(Up * mp, L), device),
+        _as_i32(checks.reshape(Up * mp, 2), device),
+        _as_i32(counts.reshape(Up * mp, 1), device),
+        m=ms + [0] * (Up - U), nbytes=nbytes, key=key, max_diff=D, K=K,
+        max_rounds=max_rounds)
+    event = None
+    if device.type == "cuda":
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+    return PendingBatchedDecode(state, success, ms, mp, nbytes, event)
+
+
+def decode_device_batched(units, *, nbytes: int, key=DEFAULT_KEY,
+                          max_diff: int | None = None,
+                          max_rounds: int = 10_000, K: int | None = None,
+                          block_m: int = 256, pad_units: int | None = None,
+                          device="cuda") -> list[DeviceDecodeResult]:
+    """Wave-peel U units' difference symbols in one batched decode: the
+    synchronous form of :func:`decode_device_batched_start` (dispatch,
+    then ``wait()``)."""
+    return decode_device_batched_start(
+        units, nbytes=nbytes, key=key, max_diff=max_diff,
+        max_rounds=max_rounds, K=K, block_m=block_m, pad_units=pad_units,
+        device=device).wait()

@@ -5,9 +5,9 @@ computes, with torch ops only: the wrappers use them for tensors on the
 CPU, the tests hold them against the reference package, and
 ``chip_smoke.py`` holds each kernel against its plain version on the card.
 
-torch has no scatter-XOR, so :func:`iblt_apply_ref` goes through bit
-parity, one bit plane at a time: ``index_add_`` of each bit into its target
-row, mod 2, repacked.
+torch has no scatter-XOR, so :func:`iblt_apply_ref` and
+:func:`iblt_encode_ref` go through bit parity, one bit plane at a time:
+``index_add_`` of each bit into its target row, mod 2, repacked.
 """
 from __future__ import annotations
 
@@ -53,24 +53,53 @@ def _xor_scatter(vals: torch.Tensor, tgt: torch.Tensor, rows: int):
     return out
 
 
-def iblt_apply_ref(items: torch.Tensor, idxs: torch.Tensor, chks: torch.Tensor,
-                   sides: torch.Tensor, *, m: int, m_out: int | None = None):
-    """Signed coded-symbol delta of ``items`` over their mapped chains.
-
-    items (n, L) int32, idxs (n, K) int32, chks (n, 2) int32, sides (n,)
-    int32 -> (sums (m_out, L) int32, checks (m_out, 2) int32, counts
-    (m_out, 1) int32).  A slot counts when ``0 <= idx < m`` and its row's
-    side is nonzero; rows [m, m_out) stay zero.  The caller XORs sums and
-    checks into its residual and subtracts the counts.
-    """
+def _scatter(items, idxs, chks, weights, limit, base, *, rows: int):
+    """The shared body of the two scatters: slot ``(i, k)`` counts when
+    ``0 <= idx < limit[i]`` and ``weights[i] != 0``; it XORs item and
+    checksum into row ``base[i] + idx`` and adds ``weights[i]`` to that
+    row's count.  ``limit`` and ``base`` are (n,) int64."""
     n, L = items.shape
     K = idxs.shape[1]
-    m_out = m if m_out is None else m_out
     flat = idxs.reshape(-1).to(torch.int64)
     row = torch.arange(n, device=items.device).repeat_interleave(K)
-    live = (flat >= 0) & (flat < m) & (sides.reshape(-1)[row] != 0)
-    tgt, row = flat[live], row[live]
-    both = _xor_scatter(torch.cat([items, chks], dim=1)[row], tgt, m_out)
-    counts = torch.zeros(m_out, dtype=torch.int32, device=items.device)
-    counts.index_add_(0, tgt, sides.reshape(-1)[row].to(torch.int32))
+    live = (flat >= 0) & (flat < limit[row]) & (weights[row] != 0)
+    tgt = (flat + base[row])[live]
+    row = row[live]
+    both = _xor_scatter(torch.cat([items, chks], dim=1)[row], tgt, rows)
+    counts = torch.zeros(rows, dtype=torch.int32, device=items.device)
+    counts.index_add_(0, tgt, weights[row].to(torch.int32))
     return both[:, :L], both[:, L:], counts[:, None]
+
+
+def iblt_apply_ref(items: torch.Tensor, idxs: torch.Tensor, chks: torch.Tensor,
+                   sides: torch.Tensor, unit: torch.Tensor,
+                   m_units: torch.Tensor, *, mp: int):
+    """Signed coded-symbol delta of ``items`` over their mapped chains, for
+    U decode units laid end to end (a plain decode is U = 1).
+
+    items (n, L) int32, idxs (n, K) int32, chks (n, 2) int32, sides (n,)
+    int32, unit (n,) int32 and m_units (U,) int32 -> (sums (U·mp, L),
+    checks (U·mp, 2), counts (U·mp, 1)), all int32.  Item ``i`` scatters
+    into block ``unit[i]`` of ``mp`` rows, where ``0 <= idx <
+    m_units[unit[i]]`` and its side is nonzero.  The caller XORs sums and
+    checks into its residual and subtracts the counts.
+    """
+    u = unit.long()
+    return _scatter(items, idxs, chks, sides.reshape(-1), m_units.long()[u],
+                    u * mp, rows=mp * m_units.numel())
+
+
+def iblt_encode_ref(items: torch.Tensor, idxs: torch.Tensor,
+                    chks: torch.Tensor, *, m: int):
+    """Coded-symbol accumulation, the encoder's half of the codec.
+
+    items (n, L) int32, idxs (n, K) int32 (pad = m), chks (n, 2) int32 ->
+    (sums (m, L) int32, checks (m, 2) int32, counts (m, 1) int32): symbol
+    ``j`` holds the XOR of the items and checksums with a slot ``idx == j``
+    and their count, for every ``0 <= j < m``.
+    """
+    n = items.shape[0]
+    ones = torch.ones(n, dtype=torch.int32, device=items.device)
+    limit = torch.full((n,), m, dtype=torch.int64, device=items.device)
+    return _scatter(items, idxs, chks, ones, limit, torch.zeros_like(limit),
+                    rows=m)

@@ -24,7 +24,10 @@ Pull protocol::
         session.offer_bytes(stream.frames(lo, hi))   # or offer(window, lo)
     report = session.report()
 
-:func:`run_session` packages that loop.
+:func:`run_session` packages that loop (on a single-peer, non-pipelined
+:class:`~repro_torch.protocol.engine.ReconcileEngine`); to reconcile
+against many peers at once — shared ticks, cross-peer batched decode —
+register several sessions on one engine instead.
 """
 from __future__ import annotations
 
@@ -73,7 +76,8 @@ class Session:
         self._peer = PeerState(
             nbytes=nbytes, key=key, locals_=[local],
             pacing=pacing or Exponential(block=8, growth=2.0),
-            max_m=max_m, backend=backend, max_diff=max_diff, device=device)
+            max_m=max_m, backend=backend, max_diff=max_diff, sharded=False,
+            device=device)
         self.decoder = self._peer.units[0].decoder
 
     # -- state --------------------------------------------------------------
@@ -169,8 +173,17 @@ def run_session(stream: SymbolStream, session: Session, wire: bool = False,
     ``wire=True`` routes every window through the byte-level frame codec —
     exactly what two networked peers would exchange.  ``backend``
     optionally switches the session's peel engine first (the switch
-    persists).  The loop is one single-peer, non-pipelined
+    persists).  A :class:`~repro_torch.protocol.sharded.ShardedSession`
+    against a :class:`~repro_torch.protocol.sharded.ShardedStream` is
+    dispatched to
+    :func:`~repro_torch.protocol.sharded.run_sharded_session`.  The loop is
+    one single-peer, non-pipelined
     :class:`~repro_torch.protocol.engine.ReconcileEngine`.
     """
     from .engine import serve
-    return serve([(stream, session)], wire=wire, backend=backend)[0]
+    from .sharded import ShardedSession, run_sharded_session
+    if isinstance(session, ShardedSession):
+        return run_sharded_session(stream, session, wire=wire,
+                                   backend=backend)
+    return serve([(stream, session)], wire=wire, backend=backend,
+                 pipeline=False)[0]

@@ -224,6 +224,12 @@ def _apply_inputs(rng, n, L, nbytes, m, m_out):
     return items, idx, chk, sides
 
 
+def _one_unit(n, m):
+    """unit (n,) and m_units (1,): every item in one unit of prefix m."""
+    return (torch.zeros(n, dtype=torch.int32),
+            torch.tensor([m], dtype=torch.int32))
+
+
 @pytest.mark.parametrize("L,nbytes", [(1, 3), (3, 11), (8, 32)])
 def test_iblt_apply_matches_reference(L, nbytes):
     """Rows with side 0 carry pad indices (idx = m), the convention of the
@@ -235,8 +241,8 @@ def test_iblt_apply_matches_reference(L, nbytes):
     want = ref_kernels.iblt_apply_ref(
         jnp.asarray(items), jnp.asarray(idx.numpy()),
         jnp.asarray(u32(chk)), jnp.asarray(sides), m=m, m_out=m_out)
-    got = iblt_apply(t32(items), idx, chk, torch.from_numpy(sides), m=m,
-                     m_out=m_out)
+    got = iblt_apply(t32(items), idx, chk, torch.from_numpy(sides),
+                     *_one_unit(60, m), mp=m_out)
     for g, w in zip(got, want):
         w = np.asarray(w)
         np.testing.assert_array_equal(g.numpy().view(w.dtype), w)
@@ -250,8 +256,31 @@ def test_iblt_apply_side_zero_rows_contribute_nothing():
     m = 300
     items, idx, chk, sides = _apply_inputs(rng, 60, 3, 11, m, m)
     live = torch.from_numpy(sides != 0)
-    full = iblt_apply(t32(items), idx, chk, torch.from_numpy(sides), m=m)
+    full = iblt_apply(t32(items), idx, chk, torch.from_numpy(sides),
+                      *_one_unit(60, m), mp=m)
     part = iblt_apply(t32(items)[live], idx[live], chk[live],
-                      torch.from_numpy(sides)[live], m=m)
+                      torch.from_numpy(sides)[live],
+                      *_one_unit(int(live.sum()), m), mp=m)
     for a, b in zip(full, part):
         assert torch.equal(a, b)
+
+
+def test_iblt_apply_units_match_one_unit_applies():
+    """U units end to end, chains built at the shared mp: each unit's block
+    is the one-unit delta (held against the reference above) of that
+    unit's items at its own prefix; an empty unit stays zero."""
+    rng = np.random.default_rng(400)
+    n, L, nbytes, mp = 90, 3, 11, 256
+    m_units = np.array([0, 256, 131, 200], np.int32)
+    items, idx, chk, sides = _apply_inputs(rng, n, L, nbytes, mp, mp)
+    unit = rng.integers(0, len(m_units), size=n).astype(np.int32)
+    got = iblt_apply(t32(items), idx, chk, torch.from_numpy(sides),
+                     torch.from_numpy(unit), torch.from_numpy(m_units), mp=mp)
+    for u, m in enumerate(m_units):
+        sel = torch.from_numpy(unit == u)
+        want = iblt_apply(t32(items)[sel], idx[sel], chk[sel],
+                          torch.from_numpy(sides)[sel],
+                          *_one_unit(int(sel.sum()), int(m)), mp=mp)
+        for g, w in zip(got, want):
+            assert torch.equal(g[u * mp:(u + 1) * mp], w)
+    assert all((g[:mp] == 0).all() for g in got)

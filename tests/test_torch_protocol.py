@@ -40,8 +40,7 @@ from repro_torch.kernels.ops import (decode_device,  # noqa: E402
                                      device_symbols_to_host,
                                      host_symbols_to_device)
 from repro_torch.protocol import (FixedBlock, ProtocolError,  # noqa: E402
-                                  ReconcileEngine, Session, SymbolStream,
-                                  run_session)
+                                  Session, SymbolStream, run_session)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -296,30 +295,16 @@ def test_shared_stream_syncs_three_replicas_over_wire():
     assert stream.m == deepest
 
 
-def test_engine_refuses_batched_decode_it_has_not_ported():
-    """Two device peers in one shape bucket, or pipelining, would need the
-    batched decode (ROADMAP items 8/9): refused, never peeled on the host."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ReconcileEngine(pipeline=True)
-    rng = np.random.default_rng(51)
-    raw = rng.integers(0, 256, size=(100, 8), dtype=np.uint8)
-    stream = SymbolStream.from_items(raw, 8)
-    engine = ReconcileEngine()
-    for stale in (3, 5):
-        local = Encoder(8)
-        local.add_items(raw[:-stale])
-        engine.register(stream, Session(local=local, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.run()
-
-
 # ------------------------------------------------ isolation and device --
 def test_port_imports_neither_jax_nor_reference():
-    code = ("import sys, repro_torch.protocol, repro_torch.kernels.ops; "
+    code = ("import sys, repro_torch.protocol, repro_torch.kernels.ops, "
+            "repro_torch.protocol.sharded, repro_torch.kernels.iblt_encode, "
+            "repro_torch.core.wire, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; print(bad); sys.exit(bool(bad))")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
