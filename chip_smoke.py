@@ -14,7 +14,10 @@ through one pipelined ``ReconcileEngine`` with batched decodes.
 Phases, one line each:
   1. build the kernels, one nvcc per source, all at once
   2. each kernel against its plain version on the card, bit for bit
-     (iblt_apply over one unit and over many)
+     (iblt_apply over one unit and over many; the scatter kernels, apply
+     and encode, also at prefixes below, at and above their shared-memory
+     table, sorted and random units, n = 1, and items too wide for one
+     row of that table)
   3. one-shot decode of d = 100,000 items at m = 160,000
   4. main path 1: |A| = 1,000,000 records, d = 10,000, a wire session
      with backend="device"
@@ -29,13 +32,15 @@ Phases, one line each:
      iblt_apply again at phase 7's largest wave: card time, plain time,
      bound
 Launch counts are set to 0 just before each main path and read just after
-it.  Then the card's name and power limit, the kernels JSON line and the
-result line.  Exits nonzero without CUDA, outside the repository, or on
-any failed check.
+it; each launch of a main path is also timed on the card with a CUDA event
+pair, summed per kernel and path (``path_ms``).  Then the card's name and
+power limit, the kernels JSON line and the result line.  Exits nonzero
+without CUDA, outside the repository, or on any failed check.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -154,6 +159,48 @@ def read_launches(mods) -> dict:
     return {fn.__name__: fn.launches for fn in mods}
 
 
+@contextlib.contextmanager
+def launch_spans(names):
+    """Time every launch of the kernels ``names`` on the card while the
+    block runs.  Each kernel's ctypes launch function (the one
+    ``_build.launcher`` hands the wrappers) is wrapped in a CUDA event pair
+    on the current stream, so only the kernel is timed and the wrappers
+    keep counting ``.launches`` on their own names.  Yields {name: [(start,
+    end) events]}; read them after a synchronise."""
+    from repro_torch.kernels import _build
+    real = {name: _build.launcher(name) for name in names}
+    spans = {name: [] for name in names}
+
+    def timed_launch(name, fn):
+        def call(*args):
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            rc = fn(*args)
+            pair[1].record()
+            spans[name].append(pair)
+            return rc
+        return call
+
+    for name, fn in real.items():
+        _build._loaded[name] = timed_launch(name, fn)
+    try:
+        yield spans
+    finally:
+        _build._loaded.update(real)
+
+
+def spans_ms(spans: dict, launches: dict) -> dict:
+    """Each kernel's summed device ms; every counted launch was timed."""
+    torch.cuda.synchronize()
+    for name, pairs in spans.items():
+        check(len(pairs) == launches.get(name, 0),
+              f"{name}: {len(pairs)} timed launches, {launches.get(name)} "
+              "counted")
+    return {name: sum(a.elapsed_time(b) for a, b in pairs)
+            for name, pairs in spans.items()}
+
+
 def words_on_card(records: np.ndarray) -> torch.Tensor:
     from repro_torch.core.hashing import bytes_to_words
     w = bytes_to_words(records, NBYTES)
@@ -188,7 +235,9 @@ def phase_build():
         + "); ptxas " + "; ".join(regs))
 
 
-def phase_kernels(rng, errs: dict) -> None:
+def phase_kernels(rng, errs: dict, cases_rng) -> None:
+    """Phase 2.  ``cases_rng`` draws the scatter kernels' design cases, so
+    that ``rng`` reaches the main paths in the same state as before them."""
     from repro_torch.core.hashing import DEFAULT_KEY, siphash24_pair
     from repro_torch.core.mapping import kmax
     from repro_torch.kernels.iblt_encode import iblt_encode
@@ -277,8 +326,88 @@ def phase_kernels(rng, errs: dict) -> None:
         check(gg.shape[0] == U * mp and bool((gg[:mp] == 0).all()),
               "iblt_apply wrote into an empty unit")
     cases += 1
+    cases += scatter_cases(cases_rng, errs)
     say(f"phase 2 kernels vs plain: {cases} cases bit-equal "
         f"(max |err| {errs})")
+
+
+def scatter_cases(rng, errs: dict) -> int:
+    """C and D, which share ``csrc/scatter.cuh``, at the inputs its design
+    branches on; returns the number of cases, each bit-equal to its plain
+    twin.
+
+    On a 132-SM card a launch of n <= 4,224 items gives each block at most
+    32 items, so the sizing rule keeps H = 512 shared rows (fewer only
+    where a unit or the card's shared memory has fewer): m = 511, 512 and
+    513 fall below, at and above the table, and m = 100,003 or 20,480 past
+    it.  L = 4,096 leaves room for 14 rows; the widest items fill more than
+    an SM's shared memory with one row, so every slot goes global.  Units
+    come sorted, as the decode passes them (a unit's items then straddle
+    several blocks' stripes), and in random order.
+    """
+    from repro_torch.core.hashing import DEFAULT_KEY
+    from repro_torch.core.mapping import kmax
+    from repro_torch.kernels.iblt_encode import iblt_encode
+    from repro_torch.kernels.map_indices import map_indices
+    from repro_torch.kernels.peel import iblt_apply
+    from repro_torch.kernels.ref import iblt_apply_ref, iblt_encode_ref
+
+    def hold(name, got, want, what):
+        for g, w in zip(got, want):
+            e = max_abs_err(g, w)
+            check(e == 0, f"{name} {what}: max |err| {e}")
+            errs[name] = max(errs[name], e)
+
+    def chains(items, m):
+        return map_indices(items, K=kmax(m), m=m, nbytes=4 * items.shape[1],
+                           key=DEFAULT_KEY)
+
+    def sides(n):
+        return torch.from_numpy(rng.integers(-1, 2, size=n, dtype=np.int32)
+                                ).to(DEVICE)
+
+    cases = 0
+    wide = torch.cuda.get_device_properties(0) \
+        .shared_memory_per_multiprocessor // 4
+    for n, L, ms in ((4_000, 23, (511, 512, 513)), (4_000, 1, (512, 100_003)),
+                     (1, 23, (1_000, 20_480)), (64, 4_096, (1_000,)),
+                     (16, wide, (1_000,))):
+        items = rand_i32(rng, (n, L))
+        for m in ms:
+            what = f"n={n} L={L} m={m}"
+            mp = ((m + 255) // 256) * 256
+            idx, chk = chains(items, mp)
+            one = (torch.zeros(n, dtype=torch.int32, device=DEVICE),
+                   torch.tensor([m], dtype=torch.int32, device=DEVICE))
+            side = sides(n)
+            hold("iblt_apply", iblt_apply(items, idx, chk, side, *one, mp=mp),
+                 iblt_apply_ref(items, idx, chk, side, *one, mp=mp), what)
+            idx, chk = chains(items, m)
+            hold("iblt_encode", iblt_encode(items, idx, chk, m=m),
+                 iblt_encode_ref(items, idx, chk, m=m), what)
+            cases += 2
+    # 32 units, ragged prefixes, unit 0 empty, unit 1 full
+    n, U = 20_000, 32
+    items = rand_i32(rng, (n, 23))
+    for mp in (512, 2_048):
+        m_units = rng.integers(0, mp + 1, size=U, dtype=np.int32)
+        m_units[0], m_units[1] = 0, mp
+        m_units = torch.from_numpy(m_units).to(DEVICE)
+        idx, chk = chains(items, mp)
+        side = sides(n)
+        for order in ("sorted", "random"):
+            unit = rng.integers(0, U, size=n, dtype=np.int32)
+            if order == "sorted":
+                unit.sort()
+            unit = torch.from_numpy(unit).to(DEVICE)
+            got = iblt_apply(items, idx, chk, side, unit, m_units, mp=mp)
+            hold("iblt_apply", got,
+                 iblt_apply_ref(items, idx, chk, side, unit, m_units, mp=mp),
+                 f"over {U} {order} units at mp={mp}")
+            check(all(bool((g[:mp] == 0).all()) for g in got),
+                  "iblt_apply wrote into an empty unit")
+            cases += 1
+    return cases
 
 
 def phase_one_shot(rng, kernels):
@@ -324,7 +453,7 @@ def phase_one_shot(rng, kernels):
     return diff
 
 
-def phase_session(rng, kernels) -> dict:
+def phase_session(rng, kernels) -> tuple[dict, dict]:
     from repro_torch.core import Encoder
     from repro_torch.core.hashing import bytes_to_words
     from repro_torch.kernels import ops
@@ -349,11 +478,13 @@ def phase_session(rng, kernels) -> dict:
     reset_launches(kernels)
     t0 = time.perf_counter()
     try:
-        rep = run_session(stream, session, wire=True)
+        with launch_spans([fn.__name__ for fn in kernels]) as timed_launches:
+            rep = run_session(stream, session, wire=True)
     finally:
         ops.decode_device = real
     session_s = time.perf_counter() - t0
     launches = read_launches(kernels)
+    path_ms = spans_ms(timed_launches, launches)
     check(as_set(rep.only_remote) ==
           as_set(bytes_to_words(recs[n - d // 2: n], NBYTES)),
           "session: wrong remote-only records")
@@ -367,8 +498,8 @@ def phase_session(rng, kernels) -> dict:
         f"session {session_s:.2f} s = serve {sum(serve_s):.2f} s + absorb "
         f"{sum(absorb_s):.2f} s + device decode {sum(decode_s):.3f} s over "
         f"{len(decode_s)} windows + rest (set-up {setup_s:.1f} s); "
-        f"host_fallbacks=0; launches {launches}")
-    return launches
+        f"host_fallbacks=0; launches {launches}; kernel ms {path_ms}")
+    return launches, path_ms
 
 
 def phase_overflow(rng) -> None:
@@ -396,7 +527,7 @@ def phase_overflow(rng) -> None:
         f"{session.host_fallbacks}, exact")
 
 
-def phase_encode(rng, kernels) -> tuple[dict, torch.Tensor]:
+def phase_encode(rng, kernels) -> tuple[dict, dict, torch.Tensor]:
     """Main path 2: device encode → subtract on the card → device decode."""
     from repro_torch.core import encode, kmax
     from repro_torch.core.hashing import bytes_to_words
@@ -409,16 +540,18 @@ def phase_encode(rng, kernels) -> tuple[dict, torch.Tensor]:
     ta, tb = words_on_card(a), words_on_card(b)
     reset_launches(kernels)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sa, ca, na = encode_device(ta, m=m, nbytes=NBYTES, device=DEVICE)
-    sb, cb, nb = encode_device(tb, m=m, nbytes=NBYTES, device=DEVICE)
-    torch.cuda.synchronize()
-    enc_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res = decode_device(sa ^ sb, ca ^ cb, na - nb, nbytes=NBYTES,
-                        device=DEVICE)
-    dec_s = time.perf_counter() - t0
+    with launch_spans([fn.__name__ for fn in kernels]) as timed_launches:
+        t0 = time.perf_counter()
+        sa, ca, na = encode_device(ta, m=m, nbytes=NBYTES, device=DEVICE)
+        sb, cb, nb = encode_device(tb, m=m, nbytes=NBYTES, device=DEVICE)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = decode_device(sa ^ sb, ca ^ cb, na - nb, nbytes=NBYTES,
+                            device=DEVICE)
+        dec_s = time.perf_counter() - t0
     launches = read_launches(kernels)
+    path_ms = spans_ms(timed_launches, launches)
     check(all(v > 0 for v in launches.values()),
           f"a kernel never launched on the encode path: {launches}")
     t0 = time.perf_counter()
@@ -438,11 +571,11 @@ def phase_encode(rng, kernels) -> tuple[dict, torch.Tensor]:
         f"encode {enc_s:.3f} s for both sets on the card (host encoder "
         f"{host_s:.1f} s for one), decode {dec_s:.3f} s in {res.rounds} "
         f"waves; A's symbols == host encoder's, difference exact; "
-        f"launches {launches}")
-    return launches, ta
+        f"launches {launches}; kernel ms {path_ms}")
+    return launches, path_ms, ta
 
 
-def phase_sharded(rng, kernels) -> tuple[dict, dict]:
+def phase_sharded(rng, kernels) -> tuple[dict, dict, dict]:
     """Main path 3: one ShardedStream, REPLICAS stale replicas, one
     pipelined engine with batched device decodes.  Also returns the
     inputs of the wave with the most items, for phase 8."""
@@ -514,13 +647,15 @@ def phase_sharded(rng, kernels) -> tuple[dict, dict]:
     peel._stage2 = stage2_rec
     reset_launches(kernels)
     try:
-        engine, sessions, reports, run_s = run(True, (serve_s, absorb_s))
+        with launch_spans([fn.__name__ for fn in kernels]) as timed_launches:
+            engine, sessions, reports, run_s = run(True, (serve_s, absorb_s))
     finally:
         stream.payload = real_payload
         ops.decode_device_batched_start = real_start
         ops.PendingBatchedDecode.wait = real_wait
         peel._stage2 = real_stage2
     launches = read_launches(kernels)
+    path_ms = spans_ms(timed_launches, launches)
     for rep, sess, (_, remote_only, local_only) in zip(reports, sessions,
                                                        replicas):
         check(as_set(rep.only_remote) == remote_only,
@@ -555,8 +690,8 @@ def phase_sharded(rng, kernels) -> tuple[dict, dict]:
         f"ingest {hidden:.3f}) + rest; serial rerun {serial_s:.2f} s "
         f"(caches warm), same symbols_used, bytes_on_wire="
         f"{[r.bytes_received for r in serial]}; host_fallbacks=0 (set-up "
-        f"{setup_s:.1f} s); launches {launches}")
-    return launches, wave
+        f"{setup_s:.1f} s); launches {launches}; kernel ms {path_ms}")
+    return launches, path_ms, wave
 
 
 def _hash_ops(L: int) -> int:
@@ -571,9 +706,11 @@ def _bound(nbytes: float, ops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_times(diff, enc_items, wave, paths: dict, errs: dict) -> list:
+def phase_times(diff, enc_items, wave, paths: dict, path_ms: dict,
+                errs: dict) -> list:
     """The kernels at main-path shapes.  ``paths`` maps each main path to
-    its launch counts; a kernel's ``launches`` is their sum.  ``wave`` is
+    its launch counts and ``path_ms`` to its kernels' summed device ms; a
+    kernel's ``launches`` and ``path_ms`` are their sums.  ``wave`` is
     phase 7's largest wave, at which map_indices and iblt_apply are timed
     a second time (``wave_*`` keys of their rows)."""
     from repro_torch.core.hashing import DEFAULT_KEY
@@ -685,16 +822,19 @@ def phase_times(diff, enc_items, wave, paths: dict, errs: dict) -> list:
         check(errs[name] == 0, f"{name} disagrees at main-path shapes")
         (ms, call_ms), (plain_ms, _) = cuda_ms(kern), cuda_ms(plain, 3, 1)
         source, replaces = KERNELS[name]
+        per_path = {p: c.get(name, 0) for p, c in paths.items()}
+        per_path_ms = {p: c.get(name, 0.0) for p, c in path_ms.items()}
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches[name],
+                    "path_ms": sum(per_path_ms.values()),
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": None})
-        per_path = {p: c.get(name, 0) for p, c in paths.items()}
         say(f"phase 8 {name} [{shape}]: {ms:.4f} ms on the card "
             f"({call_ms:.4f} ms a call from Python), plain {plain_ms:.3f} "
             f"ms, bound {bound_ms:.4f} ms ({bound_by}), {launches[name]} "
-            f"launches on the main paths {per_path}")
+            f"launches on the main paths {per_path}, their device ms "
+            f"{per_path_ms}")
         if name not in wave_runs:
             continue
         kern, plain, (bound_ms, bound_by), shape = wave_runs[name]
@@ -734,13 +874,15 @@ def main() -> int:
     errs = dict.fromkeys(KERNELS, 0)
 
     phase_build()
-    phase_kernels(rng, errs)
+    phase_kernels(rng, errs, np.random.default_rng([args.seed, 2]))
     diff = phase_one_shot(rng, decode)
-    paths = {"session": phase_session(rng, decode)}
+    paths, path_ms = {}, {}
+    paths["session"], path_ms["session"] = phase_session(rng, decode)
     phase_overflow(rng)
-    paths["encode"], enc_items = phase_encode(rng, decode + (iblt_encode,))
-    paths["sharded"], wave = phase_sharded(rng, decode)
-    rows = phase_times(diff, enc_items, wave, paths, errs)
+    paths["encode"], path_ms["encode"], enc_items = phase_encode(
+        rng, decode + (iblt_encode,))
+    paths["sharded"], path_ms["sharded"], wave = phase_sharded(rng, decode)
+    rows = phase_times(diff, enc_items, wave, paths, path_ms, errs)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded through ``ctypes``.  The build happens at
 first use, into ``build/repro_torch/`` at the repository root, and each
-library's file name carries a hash of its sources and flags, so an edited
-source rebuilds and an unchanged one loads at once.  :func:`build` compiles
-several sources in parallel, one ``nvcc`` each.
+library's file name carries a hash of its source, the headers beside it
+and the flags, so an edited source or header rebuilds and an unchanged one
+loads at once.  :func:`build` compiles several sources in parallel, one
+``nvcc`` each.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without ``nvcc``.
@@ -61,9 +62,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives for these sources."""
+    """Where the library of ``csrc/<name>.cu`` lives for these sources.
+
+    The hash covers the flags, the source and every header under ``csrc/``
+    (any of them may be included), so an edited header rebuilds too.
+    """
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "siphash.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

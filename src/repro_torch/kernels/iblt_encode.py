@@ -3,9 +3,11 @@
 Replaces the Pallas kernel ``repro/kernels/iblt_encode.py::iblt_encode``.
 Given each item's mapped-index chain (kernel A, :mod:`.map_indices`), every
 symbol ``j < m`` gets the XOR of the items and checksums mapped there and
-their count.  The kernel (``csrc/iblt_encode.cu``) scatters with 32-bit
-atomics and keeps the hot first rows — every item maps to symbol 0 — in
-shared memory; the note there says what bounds it.
+their count.  The kernel (``csrc/iblt_encode.cu``) is the scatter body of
+``csrc/scatter.cuh`` with weight +1, the body kernel C's ``iblt_apply``
+shares: a warp per item with a lane per word, and the hot first rows —
+every item maps to symbol 0 — in shared memory; the note there says what
+bounds it.
 
 On a CPU tensor the wrapper runs the plain torch version
 (:func:`repro_torch.kernels.ref.iblt_encode_ref`); on a CUDA tensor it

@@ -22,7 +22,10 @@ from repro.kernels.peel import _purity_body as ref_purity_body  # noqa: E402
 from repro_torch.core import hashing, mapping  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.map_indices import map_indices  # noqa: E402
-from repro_torch.kernels.peel import iblt_apply, purity_scan  # noqa: E402
+from repro_torch.core.encoder import encode  # noqa: E402
+from repro_torch.kernels.ops import host_symbols_to_device  # noqa: E402
+from repro_torch.kernels.peel import (PeelState, _stage1,  # noqa: E402
+                                      _stage2, iblt_apply, purity_scan)
 from repro_torch.kernels.ref import purity_ref  # noqa: E402
 
 KEYS = [hashing.DEFAULT_KEY, (0xFFFFFFFFFFFFFFFF, 0x8000000000000001)]
@@ -284,3 +287,43 @@ def test_iblt_apply_units_match_one_unit_applies():
         for g, w in zip(got, want):
             assert torch.equal(g[u * mp:(u + 1) * mp], w)
     assert all((g[:mp] == 0).all() for g in got)
+
+
+def test_stage1_hands_rows_ascending_with_units_in_order():
+    """The wave's rows reach ``_stage2`` (and the units ``iblt_apply``)
+    ascending, so each unit's items are contiguous and its units
+    non-decreasing: the scatter kernel keeps the hot rows of each block's
+    first unit on chip and sends other units' slots to device memory, so a
+    reordering would stay exact but slow the card.  Checked over two waves,
+    the second with items recovered in the first."""
+    rng = np.random.default_rng(500)
+    U, m, mp, L, nbytes = 4, 90, 128, 2, 8
+    parts = []
+    for u in range(U):
+        words = rand_words(rng, 24, L, nbytes)
+        words[:, 0] = np.arange(24, dtype=np.uint32) + 100 * u
+        diff = encode(words[:12], nbytes, m).subtract(
+            encode(words[12:], nbytes, m))
+        sums, checks, counts = host_symbols_to_device(diff, "cpu")
+        pad = torch.zeros((mp - m, 1), dtype=torch.int32)
+        parts.append((torch.cat([sums, pad.expand(-1, L)]),
+                      torch.cat([checks, pad.expand(-1, 2)]),
+                      torch.cat([counts[:, None], pad])))
+    state = PeelState(*(torch.cat(p) for p in zip(*parts)),
+                      torch.zeros((0, L), dtype=torch.int32),
+                      torch.zeros((0, 2), dtype=torch.int32),
+                      torch.zeros(0, dtype=torch.int32),
+                      torch.zeros(0, dtype=torch.int64),
+                      np.zeros(U, np.int64), np.zeros(U, bool), 0)
+    kw = dict(key=hashing.DEFAULT_KEY, nbytes=nbytes)
+    m_units = torch.full((U,), m, dtype=torch.int32)
+    for _ in range(2):
+        rows, side, _, _ = _stage1(state, mp=mp, cap=mp, max_diff=10_000,
+                                   **kw)
+        units = rows // mp
+        assert len(set(units.tolist())) >= 3
+        assert bool((rows[1:] > rows[:-1]).all())
+        assert bool((units[1:] >= units[:-1]).all())
+        state = _stage2(state, rows, side, m_units, mp=mp,
+                        K=mapping.kmax(mp), **kw)
+    assert state.rec_units.numel() > rows.numel()
