@@ -17,7 +17,10 @@ Phases, one line each:
      (iblt_apply over one unit and over many; the scatter kernels, apply
      and encode, also at prefixes below, at and above their shared-memory
      table, sorted and random units, n = 1, and items too wide for one
-     row of that table)
+     row of that table; map_indices also at the launch shapes its design
+     branches on: n = 1, ragged blocks, K = 1, all-pad tails, short items,
+     saturation past int32, several lanes an item and one, a tile that
+     leaves a block few items)
   3. one-shot decode of d = 100,000 items at m = 160,000
   4. main path 1: |A| = 1,000,000 records, d = 10,000, a wire session
      with backend="device"
@@ -28,9 +31,9 @@ Phases, one line each:
   7. main path 3: one 8-shard ShardedStream of the same 10⁶ records
      serving 3 replicas (d = 10,000 each, partly shared) through one
      pipelined ReconcileEngine; a serial rerun uses the same symbols
-  8. the kernels at the phase-3 and phase-6 shapes, and map_indices and
-     iblt_apply again at phase 7's largest wave: card time, plain time,
-     bound
+  8. the kernels at the phase-3 and phase-6 shapes, map_indices and
+     iblt_apply again at phase 7's largest wave, and map_indices again at
+     the phase-6 encode shape: card time, plain time, bound
 Launch counts are set to 0 just before each main path and read just after
 it; each launch of a main path is also timed on the card with a CUDA event
 pair, summed per kernel and path (``path_ms``).  Then the card's name and
@@ -327,6 +330,7 @@ def phase_kernels(rng, errs: dict, cases_rng) -> None:
               "iblt_apply wrote into an empty unit")
     cases += 1
     cases += scatter_cases(cases_rng, errs)
+    cases += map_cases(cases_rng, errs)
     say(f"phase 2 kernels vs plain: {cases} cases bit-equal "
         f"(max |err| {errs})")
 
@@ -407,6 +411,54 @@ def scatter_cases(rng, errs: dict) -> int:
             check(all(bool((g[:mp] == 0).all()) for g in got),
                   "iblt_apply wrote into an empty unit")
             cases += 1
+    return cases
+
+
+def map_cases(rng, errs: dict) -> int:
+    """A at the inputs its design branches on; returns the number of cases,
+    each bit-equal to its plain twin.
+
+    ``launch_shape`` gives an item more lanes while a wave has fewer than
+    ``FILL`` threads an SM (on a 132-SM card: G = 1 from 16,896 items,
+    G = 2 from 8,448, else G = 4) and a block 128 / G items, fewer where
+    their (bn, K) index tile exceeds the shared memory.  The cases: n = 1;
+    n = 4,097, a multiple of neither the block's items nor four, with an
+    odd K, so block tiles start off 16-byte alignment; K = 1; K = 200, past
+    every chain at m = 1,000 (all-pad tails); L = 1 with nbytes = 3 and
+    L = 2 (no leftover word); m = 2,097,152 (jumps past int32 saturate);
+    200,003 items at G = 1; K = 9,999, whose tile leaves a block 4 items.
+    """
+    from repro_torch.core.hashing import DEFAULT_KEY
+    from repro_torch.core.mapping import kmax
+    from repro_torch.kernels.map_indices import (_card, launch_shape,
+                                                 map_indices)
+    from repro_torch.kernels.ref import map_indices_ref
+    sms, optin = _card(torch.cuda.current_device())
+    lanes_seen, cases = set(), 0
+    for n, L, nbytes, K, m in ((1, 23, 92, kmax(160_000), 160_000),
+                               (4_097, 23, 92, kmax(2_048), 2_048),
+                               (3_001, 23, 92, 1, 1_000),
+                               (3_001, 23, 92, 200, 1_000),
+                               (10_000, 1, 3, kmax(20_480), 20_480),
+                               (10_000, 2, 8, kmax(20_480), 20_480),
+                               (10_000, 23, 92, kmax(2_097_152), 2_097_152),
+                               (200_003, 23, 92, kmax(20_480), 20_480),
+                               (50, 23, 92, 9_999, 2 ** 30)):
+        items = rand_i32(rng, (n, L))
+        if nbytes % 4:
+            items[:, -1] &= (1 << (8 * (nbytes % 4))) - 1
+        bn, lanes, _ = launch_shape(n, K, sms=sms, smem_optin=optin)
+        lanes_seen.add(lanes)
+        got = map_indices(items, K=K, m=m, nbytes=nbytes, key=DEFAULT_KEY)
+        want = map_indices_ref(items, K=K, m=m, nbytes=nbytes,
+                               key=DEFAULT_KEY)
+        for g, w in zip(got, want):
+            e = max_abs_err(g, w)
+            check(e == 0, f"map_indices n={n} L={L} K={K} m={m} (bn={bn}, "
+                  f"G={lanes}): max |err| {e}")
+            errs["map_indices"] = max(errs["map_indices"], e)
+        cases += 1
+    check({1, 2, 4} <= lanes_seen, f"lanes an item covered: {lanes_seen}")
     return cases
 
 
@@ -712,7 +764,8 @@ def phase_times(diff, enc_items, wave, paths: dict, path_ms: dict,
     its launch counts and ``path_ms`` to its kernels' summed device ms; a
     kernel's ``launches`` and ``path_ms`` are their sums.  ``wave`` is
     phase 7's largest wave, at which map_indices and iblt_apply are timed
-    a second time (``wave_*`` keys of their rows)."""
+    a second time (``wave_*`` keys of their rows); map_indices is timed a
+    third time at the phase-6 encode shape (``encode_*`` keys)."""
     from repro_torch.core.hashing import DEFAULT_KEY
     from repro_torch.core.mapping import kmax
     from repro_torch.kernels.map_indices import map_indices
@@ -806,9 +859,17 @@ def phase_times(diff, enc_items, wave, paths: dict, path_ms: dict,
     }
     # the encoder's accumulation at the phase-6 shapes: A's 10^6 records
     n_enc, m_enc, K_enc = enc_items.shape[0], M_ENCODE, kmax(M_ENCODE)
-    e_idx, e_chk = map_indices(enc_items, K=K_enc, m=m_enc, nbytes=NBYTES,
-                               key=key)
+    e_kw = dict(K=K_enc, m=m_enc, nbytes=NBYTES, key=key)
+    e_idx, e_chk = map_indices(enc_items, **e_kw)
     e_valid = int(((e_idx >= 0) & (e_idx < m_enc)).sum())
+    encode_runs = {
+        "map_indices": (
+            lambda: map_indices(enc_items, **e_kw),
+            lambda: map_indices_ref(enc_items, **e_kw),
+            _bound(n_enc * (L + K_enc + 2) * 4,
+                   n_enc * 2 * _hash_ops(L) + e_valid * 28),
+            f"n={n_enc} L={L} K={K_enc} m={m_enc}"),
+    }
     runs["iblt_encode"] = (
         lambda: iblt_encode(enc_items, e_idx, e_chk, m=m_enc),
         lambda: iblt_encode_ref(enc_items, e_idx, e_chk, m=m_enc),
@@ -835,20 +896,23 @@ def phase_times(diff, enc_items, wave, paths: dict, path_ms: dict,
             f"ms, bound {bound_ms:.4f} ms ({bound_by}), {launches[name]} "
             f"launches on the main paths {per_path}, their device ms "
             f"{per_path_ms}")
-        if name not in wave_runs:
-            continue
-        kern, plain, (bound_ms, bound_by), shape = wave_runs[name]
-        for g, w in zip(outputs(kern()), outputs(plain())):
-            errs[name] = max(errs[name], max_abs_err(g, w))
-        check(errs[name] == 0, f"{name} disagrees at phase 7's wave")
-        (ms, call_ms), (plain_ms, _) = cuda_ms(kern), cuda_ms(plain, 3, 1)
-        out[-1].update(max_abs_err=errs[name], wave_ms=ms,
-                       wave_plain_ms=plain_ms, wave_bound_ms=bound_ms,
-                       wave_shape=shape)
-        say(f"phase 8 {name} at phase 7's largest wave [{shape}]: "
-            f"{ms:.4f} ms on the card ({call_ms:.4f} ms a call from "
-            f"Python), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by})")
+        for tag, at, extra in (
+                ("wave", "phase 7's largest wave", wave_runs),
+                ("encode", "the phase-6 encode shape", encode_runs)):
+            if name not in extra:
+                continue
+            kern, plain, (bound_ms, bound_by), shape = extra[name]
+            for g, w in zip(outputs(kern()), outputs(plain())):
+                errs[name] = max(errs[name], max_abs_err(g, w))
+            check(errs[name] == 0, f"{name} disagrees at {at}")
+            (ms, call_ms), (plain_ms, _) = cuda_ms(kern), cuda_ms(plain, 3, 1)
+            out[-1].update({"max_abs_err": errs[name], f"{tag}_ms": ms,
+                            f"{tag}_plain_ms": plain_ms,
+                            f"{tag}_bound_ms": bound_ms,
+                            f"{tag}_shape": shape})
+            say(f"phase 8 {name} at {at} [{shape}]: {ms:.4f} ms on the "
+                f"card ({call_ms:.4f} ms a call from Python), plain "
+                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return out
 
 

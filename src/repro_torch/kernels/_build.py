@@ -40,7 +40,7 @@ _U64 = ctypes.c_uint64
 SIGNATURES = {
     "map_indices": ("map_indices_launch",
                     [_P, _LL, _I, _I, _I, _LL, _U64, _U64, _U64, _U64,
-                     _P, _P, _P]),
+                     _P, _P, _I, _I, _LL, _P]),
     "purity_scan": ("purity_scan_launch",
                     [_P, _P, _P, _LL, _I, _I, _U64, _U64, _P, _P]),
     "iblt_apply": ("iblt_apply_launch",

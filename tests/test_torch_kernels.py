@@ -21,7 +21,8 @@ from repro.kernels.peel import _purity_body as ref_purity_body  # noqa: E402
 
 from repro_torch.core import hashing, mapping  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
-from repro_torch.kernels.map_indices import map_indices  # noqa: E402
+from repro_torch.kernels.map_indices import (launch_shape,  # noqa: E402
+                                             map_indices)
 from repro_torch.core.encoder import encode  # noqa: E402
 from repro_torch.kernels.ops import host_symbols_to_device  # noqa: E402
 from repro_torch.kernels.peel import (PeelState, _stage1,  # noqa: E402
@@ -183,6 +184,35 @@ def test_map_indices_matches_reference(L, nbytes):
     idx, chk = map_indices(t32(w), K=K, m=m, nbytes=nbytes, key=KEYS[1])
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
     np.testing.assert_array_equal(u32(chk), np.asarray(rc))
+
+
+# An H100 SXM: 132 SMs, 227 KB of opt-in shared memory a block.
+H100 = dict(sms=132, smem_optin=232_448)
+
+
+@pytest.mark.parametrize("n,K,want", [
+    (25_283, 74, (128, 1, 4 * (3 + 128 * 74))),    # phase-3 first wave
+    (6_948, 57, (32, 4, 4 * (3 + 32 * 57))),       # phase 7's largest wave
+    (1_000_000, 66, (128, 1, 4 * (3 + 128 * 66))),  # one phase-6 encode
+    (1, 74, (32, 4, 4 * (3 + 32 * 74))),
+    (16_896, 66, (128, 1, 4 * (3 + 128 * 66))),    # FILL threads an SM
+    (16_895, 66, (64, 2, 4 * (3 + 64 * 66))),
+    (8_447, 66, (32, 4, 4 * (3 + 32 * 66))),
+    (50, 20_000, (2, 4, 4 * (3 + 2 * 20_000))),    # the tile halves bn
+    (50, 58_109, (1, 4, 232_448)),                 # one item fills it
+])
+def test_map_indices_launch_shape(n, K, want):
+    """The launch shape the wrapper hands the kernel: lanes an item from
+    the wave's size, items a block from 128 threads and the index tile's
+    shared memory."""
+    assert launch_shape(n, K, **H100) == want
+
+
+def test_map_indices_launch_shape_refuses_an_item_too_wide():
+    """K indices of one item beyond a block's shared memory: the wrapper
+    raises before any launch (there is no other path on the card)."""
+    with pytest.raises(ValueError, match="shared memory"):
+        launch_shape(50, 58_110, **H100)
 
 
 def _symbols(rng, mp, L, nbytes, n_pure):
