@@ -7,7 +7,9 @@ main paths at the paper's Ethereum state-sync geometry (92-byte records:
 20 B key + 72 B value): a ``SymbolStream`` served as wire frames to a
 ``Session`` whose ``StreamDecoder`` wave-peels on the card; the device
 encoder's round trip; and a ``ShardedStream`` serving several replicas
-through one pipelined ``ReconcileEngine`` with batched decodes.
+through one pipelined ``ReconcileEngine`` with batched decodes.  A fourth
+main path repairs a checkpoint store the size of Qwen3-4B's (16-byte
+manifest records), and ``reconcile_sets`` runs once on the card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -20,7 +22,8 @@ Phases, one line each:
      row of that table; map_indices also at the launch shapes its design
      branches on: n = 1, ragged blocks, K = 1, all-pad tails, short items,
      saturation past int32, several lanes an item and one, a tile that
-     leaves a block few items)
+     leaves a block few items; A, B and C also at the checkpoint records'
+     width, L = 4)
   3. one-shot decode of d = 100,000 items at m = 160,000
   4. main path 1: |A| = 1,000,000 records, d = 10,000, a wire session
      with backend="device"
@@ -31,9 +34,18 @@ Phases, one line each:
   7. main path 3: one 8-shard ShardedStream of the same 10⁶ records
      serving 3 replicas (d = 10,000 each, partly shared) through one
      pipelined ReconcileEngine; a serial rerun uses the same symbols
-  8. the kernels at the phase-3 and phase-6 shapes, map_indices and
-     iblt_apply again at phase 7's largest wave, and map_indices again at
-     the phase-6 encode shape: card time, plain time, bound
+  8. main path 4: a bf16 state_dict of Qwen3-4B's shapes (4.0·10⁹
+     parameters, 30,833 chunks of 256 KiB) saved by a stale replica at
+     step 100; the peer re-draws layers 32-35 and saves step 110;
+     ``sync_from_peer`` repairs the stale store on the card, fetching
+     exactly the 3,096 differing chunks (both stores in a temporary
+     directory, removed at the end); the host's one-thread blake2b rate
+     over the embedding's chunks says how much of a save is hashing
+  9. ``reconcile_sets`` of two 10⁶-item Sketches of 32-byte items, d = 1,000
+ 10. the kernels at the phase-3 and phase-6 shapes, map_indices and
+     iblt_apply again at phase 7's largest wave, map_indices again at the
+     phase-6 encode shape, and A, B, C at phase 8's largest wave: card
+     time, plain time, bound
 Launch counts are set to 0 just before each main path and read just after
 it; each launch of a main path is also timed on the card with a CUDA event
 pair, summed per kernel and path (``path_ms``).  Then the card's name and
@@ -45,8 +57,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -72,6 +86,15 @@ N_SESSION, D_SESSION = 1_000_000, 10_000
 N_OVERFLOW, D_OVERFLOW = 20_000, 500
 N_ENCODE, D_ENCODE, M_ENCODE = 1_000_000, 10_000, 20_480
 N_SHARDED, D_SHARDED, SHARDS, REPLICAS = 1_000_000, 10_000, 8, 3
+# phase 8: Qwen3-4B (src/repro/configs/qwen3_4b.py, written out here since
+# the script imports nothing of the JAX package); word embeddings tied as
+# in the public Qwen/Qwen3-4B config, whose checkpoint has no
+# lm_head.weight (the repo's ModelConfig leaves tie_embeddings False)
+QWEN3_4B = dict(layers=36, d_model=2560, heads=32, kv_heads=8, head_dim=128,
+                d_ff=9728, vocab=151_936)
+TUNED_LAYERS = range(32, 36)
+CKPT_PARAMS, CKPT_CHUNKS, CKPT_DIFF = 4_022_468_096, 30_833, 3_096
+N_SETS, D_SETS, SET_BYTES = 1_000_000, 1_000, 32
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "map_indices": ("src/repro_torch/csrc/map_indices.cu",
                     "src/repro/kernels/map_indices.py:41"),
@@ -191,6 +214,30 @@ def launch_spans(names):
         yield spans
     finally:
         _build._loaded.update(real)
+
+
+@contextlib.contextmanager
+def largest_wave():
+    """Record, while the block runs, the inputs of the removal stage
+    (map_indices + iblt_apply) of the wave that recovers the most items,
+    by wrapping ``peel._stage2``.  Yields a dict: ``args`` (state, rows,
+    side, m_units) and ``kw``; the state is the one that wave's purity
+    scan read (each wave makes a new one)."""
+    from repro_torch.kernels import peel
+    real = peel._stage2
+    wave = {}
+
+    def stage2_rec(state, rows, side, m_units, **kw):
+        if rows.numel() > wave.get("n", 0):
+            wave.update(n=rows.numel(), args=(state, rows, side, m_units),
+                        kw=kw)
+        return real(state, rows, side, m_units, **kw)
+
+    peel._stage2 = stage2_rec
+    try:
+        yield wave
+    finally:
+        peel._stage2 = real
 
 
 def spans_ms(spans: dict, launches: dict) -> dict:
@@ -331,6 +378,7 @@ def phase_kernels(rng, errs: dict, cases_rng) -> None:
     cases += 1
     cases += scatter_cases(cases_rng, errs)
     cases += map_cases(cases_rng, errs)
+    cases += narrow_cases(cases_rng, errs)
     say(f"phase 2 kernels vs plain: {cases} cases bit-equal "
         f"(max |err| {errs})")
 
@@ -459,6 +507,78 @@ def map_cases(rng, errs: dict) -> int:
             errs["map_indices"] = max(errs["map_indices"], e)
         cases += 1
     check({1, 2, 4} <= lanes_seen, f"lanes an item covered: {lanes_seen}")
+    return cases
+
+
+def narrow_cases(rng, errs: dict) -> int:
+    """A, B and C at the checkpoint path's width: 16-byte records, L = 4
+    words (the other main paths carry L = 23).  Returns the number of
+    cases, each bit-equal to its plain twin.
+
+    A at 6,192 items (4 lanes an item on a 132-SM card), 65,536 (1
+    lane) and 10,000 past int32 at m = 2,097,152 (2 lanes); B over random
+    symbols and with planted pure ones; C over one unit and over 8 sorted
+    units with ragged prefixes.
+    """
+    from repro_torch.core.hashing import DEFAULT_KEY, siphash24_pair
+    from repro_torch.core.mapping import kmax
+    from repro_torch.kernels.map_indices import map_indices
+    from repro_torch.kernels.peel import iblt_apply, purity_scan
+    from repro_torch.kernels.ref import (iblt_apply_ref, map_indices_ref,
+                                         purity_ref)
+    key, L, nbytes = DEFAULT_KEY, 4, 16
+
+    def hold(name, got, want, what):
+        for g, w in zip(outputs(got), outputs(want)):
+            e = max_abs_err(g, w)
+            check(e == 0, f"{name} L=4 {what}: max |err| {e}")
+            errs[name] = max(errs[name], e)
+
+    cases = 0
+    for n, m in ((6_192, 16_384), (65_536, 16_384), (10_000, 2_097_152)):
+        items = rand_i32(rng, (n, L))
+        kw = dict(K=kmax(m), m=m, nbytes=nbytes, key=key)
+        hold("map_indices", map_indices(items, **kw),
+             map_indices_ref(items, **kw), f"n={n} m={m}")
+        cases += 1
+    mp = 16_384
+    sums, checks = rand_i32(rng, (mp, L)), rand_i32(rng, (mp, 2))
+    counts = torch.from_numpy(rng.integers(-3, 4, size=(mp, 1),
+                                           dtype=np.int32)).to(DEVICE)
+    for planted in (False, True):
+        if planted:
+            rows = torch.from_numpy(rng.permutation(mp)[:mp // 3]).to(DEVICE)
+            hi, lo = siphash24_pair(sums[rows], key, nbytes)
+            checks[rows] = torch.stack([hi, lo], dim=1)
+            counts[rows] = torch.where(rows % 2 == 0, 1, -1).to(
+                torch.int32)[:, None]
+        got = purity_scan(sums, checks, counts, key=key, nbytes=nbytes)
+        hold("purity_scan", got,
+             purity_ref(sums, checks, counts, key=key, nbytes=nbytes),
+             f"mp={mp} planted={planted}")
+        if planted:
+            check(bool((got[rows] != 0).all()), "planted pure rows missed")
+        cases += 1
+    n, m = 6_192, 10_007
+    mp = ((m + 255) // 256) * 256
+    items = rand_i32(rng, (n, L))
+    idx, chk = map_indices(items, K=kmax(mp), m=mp, nbytes=nbytes, key=key)
+    sides = torch.from_numpy(rng.integers(-1, 2, size=n, dtype=np.int32)
+                             ).to(DEVICE)
+    U = 8
+    m_units = torch.from_numpy(rng.integers(0, mp + 1, size=U,
+                                            dtype=np.int32)).to(DEVICE)
+    m_units[0] = m
+    for unit, lim in ((torch.zeros(n, dtype=torch.int32, device=DEVICE),
+                       m_units[:1]),
+                      (torch.from_numpy(np.sort(rng.integers(
+                          0, U, size=n, dtype=np.int32))).to(DEVICE),
+                       m_units)):
+        hold("iblt_apply", iblt_apply(items, idx, chk, sides, unit, lim,
+                                      mp=mp),
+             iblt_apply_ref(items, idx, chk, sides, unit, lim, mp=mp),
+             f"n={n} over {lim.numel()} units at mp={mp}")
+        cases += 1
     return cases
 
 
@@ -630,9 +750,9 @@ def phase_encode(rng, kernels) -> tuple[dict, dict, torch.Tensor]:
 def phase_sharded(rng, kernels) -> tuple[dict, dict, dict]:
     """Main path 3: one ShardedStream, REPLICAS stale replicas, one
     pipelined engine with batched device decodes.  Also returns the
-    inputs of the wave with the most items, for phase 8."""
+    inputs of the wave with the most items, for phase 10."""
     from repro_torch.core.hashing import bytes_to_words
-    from repro_torch.kernels import ops, peel
+    from repro_torch.kernels import ops
     from repro_torch.protocol import ReconcileEngine, ShardedStream
     n, d = N_SHARDED, D_SHARDED
     half, step = d // 2, d // 4       # consecutive replicas share half
@@ -682,30 +802,18 @@ def phase_sharded(rng, kernels) -> tuple[dict, dict, dict]:
         spans.append(span)
         return pending
 
-    # the wave that recovers the most items: the inputs of its removal
-    # stage (map_indices + iblt_apply), kept for phase 8
-    real_stage2 = peel._stage2
-    wave = {}
-
-    def stage2_rec(state, rows, side, m_units, **kw):
-        if rows.numel() > wave.get("n", 0):
-            wave.update(n=rows.numel(), args=(state, rows, side, m_units),
-                        kw=kw)
-        return real_stage2(state, rows, side, m_units, **kw)
-
     stream.payload = timed(real_payload, serve_s)
     ops.decode_device_batched_start = timed(start, start_s)
     ops.PendingBatchedDecode.wait = timed(real_wait, wait_s)
-    peel._stage2 = stage2_rec
     reset_launches(kernels)
     try:
-        with launch_spans([fn.__name__ for fn in kernels]) as timed_launches:
+        with largest_wave() as wave, \
+                launch_spans([fn.__name__ for fn in kernels]) as timed_launches:
             engine, sessions, reports, run_s = run(True, (serve_s, absorb_s))
     finally:
         stream.payload = real_payload
         ops.decode_device_batched_start = real_start
         ops.PendingBatchedDecode.wait = real_wait
-        peel._stage2 = real_stage2
     launches = read_launches(kernels)
     path_ms = spans_ms(timed_launches, launches)
     for rep, sess, (_, remote_only, local_only) in zip(reports, sessions,
@@ -746,6 +854,176 @@ def phase_sharded(rng, kernels) -> tuple[dict, dict, dict]:
     return launches, path_ms, wave
 
 
+def qwen3_4b_shapes() -> list:
+    """(name, shape) of every tensor of the public Qwen/Qwen3-4B checkpoint,
+    under its Hugging Face names: no biases, q/k norms of one head's width,
+    no ``lm_head.weight`` (tied to the embedding)."""
+    c = QWEN3_4B
+    d, ff, hd = c["d_model"], c["d_ff"], c["head_dim"]
+    q, kv = c["heads"] * hd, c["kv_heads"] * hd
+    out = [("model.embed_tokens.weight", (c["vocab"], d))]
+    for i in range(c["layers"]):
+        p = f"model.layers.{i}."
+        out += [(p + "input_layernorm.weight", (d,)),
+                (p + "self_attn.q_proj.weight", (q, d)),
+                (p + "self_attn.k_proj.weight", (kv, d)),
+                (p + "self_attn.v_proj.weight", (kv, d)),
+                (p + "self_attn.o_proj.weight", (d, q)),
+                (p + "self_attn.q_norm.weight", (hd,)),
+                (p + "self_attn.k_norm.weight", (hd,)),
+                (p + "post_attention_layernorm.weight", (d,)),
+                (p + "mlp.gate_proj.weight", (ff, d)),
+                (p + "mlp.up_proj.weight", (ff, d)),
+                (p + "mlp.down_proj.weight", (d, ff))]
+    out.append(("model.norm.weight", (d,)))
+    return out
+
+
+def phase_checkpoint(seed: int, kernels) -> tuple[dict, dict, dict]:
+    """Main path 4: repair a stale Qwen3-4B-sized checkpoint store from a
+    peer that fine-tuned the top four layers.  Returns the path's launches,
+    its kernels' device ms and its largest wave (for phase 10)."""
+    from repro_torch.checkpoint import (CheckpointStore, PeerEndpoint,
+                                        sync_from_peer)
+    from repro_torch.checkpoint.manager import CHUNK_BYTES, _digest
+    from repro_torch.kernels import ops
+    shapes = qwen3_4b_shapes()
+    params = sum(int(np.prod(sh)) for _, sh in shapes)
+    chunks = {name: -(-int(np.prod(sh)) * 2 // CHUNK_BYTES)
+              for name, sh in shapes}
+    tuned = [name for name, _ in shapes
+             if any(name.startswith(f"model.layers.{i}.")
+                    for i in TUNED_LAYERS)]
+    check(params == CKPT_PARAMS and sum(chunks.values()) == CKPT_CHUNKS
+          and sum(chunks[n] for n in tuned) == CKPT_DIFF,
+          f"Qwen3-4B shapes: {params} parameters, {sum(chunks.values())} "
+          f"chunks, {sum(chunks[n] for n in tuned)} tuned")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16)
+
+    stale_sd = {name: draw(sh) for name, sh in shapes}
+    fresh_sd = dict(stale_sd)
+    fresh_sd.update({name: draw(stale_sd[name].shape) for name in tuned})
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        free = shutil.disk_usage(root).free
+        need = 2 * params * 2 + (64 << 20)
+        say(f"phase 8 checkpoint: {free / 1e9:.1f} GB free at {root}, "
+            f"{need / 1e9:.1f} GB needed")
+        check(free >= need, f"disk: {free} bytes free, {need} needed")
+        # the host's one-thread chunk hashing rate, over the embedding
+        emb = stale_sd["model.embed_tokens.weight"].cpu().reshape(-1) \
+            .view(torch.uint8).numpy()
+        t0 = time.perf_counter()
+        for i in range(0, len(emb), CHUNK_BYTES):
+            _digest("rate", i, emb[i:i + CHUNK_BYTES])
+        hash_rate = len(emb) / (time.perf_counter() - t0)
+        del emb
+        stale = CheckpointStore(str(root / "stale"))
+        fresh = CheckpointStore(str(root / "fresh"))
+        secs = {}
+        t0 = time.perf_counter()
+        stale.save(100, stale_sd)
+        secs["save stale"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fresh.save(110, fresh_sd)
+        secs["save fresh"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_records = stale.records().shape[0]
+        secs["records"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        peer = PeerEndpoint(fresh)
+        secs["peer set-up"] = time.perf_counter() - t0
+        before = stale.manifest()["chunks"]
+        differing = sum(before.get(cid) != dig
+                        for cid, dig in fresh.manifest()["chunks"].items())
+        decode_s = []
+        real = ops.decode_device
+        ops.decode_device = timed(real, decode_s)
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        try:
+            with largest_wave() as wave, launch_spans(
+                    [fn.__name__ for fn in kernels]) as timed_launches:
+                rep = sync_from_peer(stale, peer, device=DEVICE)
+        finally:
+            ops.decode_device = real
+        secs["sync"] = time.perf_counter() - t0
+        launches = read_launches(kernels)
+        path_ms = spans_ms(timed_launches, launches)
+        t0 = time.perf_counter()
+        bad = stale.verify()
+        secs["verify"] = time.perf_counter() - t0
+        check(n_records == CKPT_CHUNKS, f"{n_records} records")
+        check(differing == CKPT_DIFF, f"{differing} chunks differ, "
+              f"{CKPT_DIFF} expected")
+        check(rep.chunks_fetched == differing,
+              f"fetched {rep.chunks_fetched} chunks, {differing} differ")
+        check(stale.manifest()["chunks"] == fresh.manifest()["chunks"],
+              "manifests differ after the repair")
+        check(bad == [], f"{len(bad)} chunks fail verify after the repair")
+        check(rep.host_fallbacks == 0, "the repair fell back to the host")
+        check(all(launches[fn.__name__] > 0 for fn in kernels
+                  if fn.__name__ != "iblt_encode")
+              and launches.get("iblt_encode", 0) == 0,
+              f"checkpoint path launches: {launches}")
+        t0 = time.perf_counter()
+        got = stale.restore({name: torch.empty_like(fresh_sd[name],
+                                                    device="meta")
+                             for name in tuned}, device=DEVICE)
+        secs["restore tuned"] = time.perf_counter() - t0
+        check(all(got[n].device.type == torch.device(DEVICE).type and
+                  torch.equal(
+            got[n].view(torch.int16), fresh_sd[n].view(torch.int16))
+            for n in tuned), "restored layers differ from the peer's")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del stale_sd, fresh_sd, got
+    torch.cuda.empty_cache()
+    say(f"phase 8 checkpoint repair: Qwen3-4B bf16 state_dict, {params:,} "
+        f"parameters, {len(shapes)} tensors, {n_records} records of 16 B; "
+        f"layers {TUNED_LAYERS.start}-{TUNED_LAYERS.stop - 1} re-drawn: "
+        f"{differing} chunks differ (d = {2 * differing} records); "
+        f"symbols_used={rep.symbols_used} "
+        f"({rep.symbols_used / (2 * differing):.3f} a record) "
+        f"symbol_bytes={rep.symbol_bytes} chunks_fetched="
+        f"{rep.chunks_fetched} chunk_bytes={rep.chunk_bytes} naive_bytes="
+        f"{rep.naive_bytes} savings={rep.savings:.2f}x; manifests equal, "
+        f"verify clean, layers bit-equal on the card, host_fallbacks=0; "
+        f"seconds {({k: round(v, 2) for k, v in secs.items()})} (blake2b "
+        f"{hash_rate / 1e9:.3f} GB/s on one thread, so "
+        f"{2 * params / hash_rate:.1f} s of hashing in each save and "
+        f"verify), device "
+        f"decode {sum(decode_s):.3f} s over {len(decode_s)} windows; "
+        f"launches {launches}; kernel ms {path_ms}")
+    return launches, path_ms, wave
+
+
+def phase_reconcile_sets(seed: int) -> None:
+    """``reconcile_sets`` on the card: two 10⁶-item Sketches, d = 1,000."""
+    from repro_torch.core import Sketch, reconcile_sets
+    n, half = N_SETS, D_SETS // 2
+    recs = random_records(np.random.default_rng([seed, 3]), n + half,
+                          SET_BYTES)
+    a, b = recs[:n], np.concatenate([recs[:n - half], recs[n:]])
+    t0 = time.perf_counter()
+    sa, sb = Sketch.from_items(a, SET_BYTES), Sketch.from_items(b, SET_BYTES)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    only_a, only_b, used = reconcile_sets(sa, sb, device=DEVICE)
+    run_s = time.perf_counter() - t0
+    check(as_set(only_a) == as_set(recs[n - half:n]),
+          "reconcile_sets: wrong A-only items")
+    check(as_set(only_b) == as_set(recs[n:]),
+          "reconcile_sets: wrong B-only items")
+    say(f"phase 9 reconcile_sets: |A|={n} d={D_SETS} items of {SET_BYTES} B; "
+        f"exact; symbols_used={used} ({used / D_SETS:.3f} an item); "
+        f"{run_s:.2f} s (Sketches {setup_s:.1f} s)")
+
+
 def _hash_ops(L: int) -> int:
     """32-bit integer operations of one SipHash-2-4 over L words."""
     siprounds = 2 * (L // 2) + 2 + 4
@@ -758,14 +1036,60 @@ def _bound(nbytes: float, ops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_times(diff, enc_items, wave, paths: dict, path_ms: dict,
-                errs: dict) -> list:
+def wave_runs(wave: dict) -> dict:
+    """B, A and C at a wave recorded by :func:`largest_wave`: U units, the
+    chains at their shared mp, as ``peel._stage2`` builds them.  Each value
+    is (kernel, plain, (bound ms, bound by), shape)."""
+    from repro_torch.kernels.map_indices import map_indices
+    from repro_torch.kernels.peel import iblt_apply, purity_scan
+    from repro_torch.kernels.ref import (iblt_apply_ref, map_indices_ref,
+                                         purity_ref)
+    (state, rows, side, m_units), kw = wave["args"], wave["kw"]
+    mp, K, U, L = kw["mp"], kw["K"], m_units.numel(), state.sums.shape[1]
+    nbytes, key = kw["nbytes"], kw["key"]
+    items, chks = state.sums[rows], state.checks[rows]
+    unit = (rows // mp).to(torch.int32)
+    m_kw = dict(K=K, m=mp, nbytes=nbytes, key=key)
+    idx, _ = map_indices(items, **m_kw)
+    n = items.shape[0]
+    limit = m_units.long()[unit.long()][:, None]
+    valid = int(((idx >= 0) & (idx < limit) & (side != 0)[:, None]).sum())
+    nonempty = int((state.counts != 0).sum())
+    return {
+        "purity_scan": (
+            lambda: purity_scan(*state[:3], key=key, nbytes=nbytes),
+            lambda: purity_ref(*state[:3], key=key, nbytes=nbytes),
+            _bound(U * mp * (L + 3) * 4 + U * mp * 4,
+                   nonempty * (_hash_ops(L) + 4)),
+            f"U={U} mp={mp} L={L} nonempty={nonempty}"),
+        "map_indices": (
+            lambda: map_indices(items, **m_kw),
+            lambda: map_indices_ref(items, **m_kw),
+            _bound(n * (L + K + 2) * 4,
+                   n * 2 * _hash_ops(L) + int((idx < mp).sum()) * 28),
+            f"n={n} L={L} K={K} m={mp}"),
+        "iblt_apply": (
+            lambda: iblt_apply(items, idx, chks, side, unit, m_units, mp=mp),
+            lambda: iblt_apply_ref(items, idx, chks, side, unit, m_units,
+                                   mp=mp),
+            _bound(n * (L + K + 4) * 4 + U * mp * (L + 3) * 4,
+                   valid * (L + 3)),
+            f"U={U} n={n} L={L} K={K} mp={mp} m_u={m_units.tolist()} "
+            f"valid slots={valid}"),
+    }
+
+
+def phase_times(diff, enc_items, wave, ckpt_wave, paths: dict,
+                path_ms: dict, errs: dict) -> list:
     """The kernels at main-path shapes.  ``paths`` maps each main path to
     its launch counts and ``path_ms`` to its kernels' summed device ms; a
     kernel's ``launches`` and ``path_ms`` are their sums.  ``wave`` is
     phase 7's largest wave, at which map_indices and iblt_apply are timed
     a second time (``wave_*`` keys of their rows); map_indices is timed a
-    third time at the phase-6 encode shape (``encode_*`` keys)."""
+    third time at the phase-6 encode shape (``encode_*`` keys).
+    ``ckpt_wave`` is phase 8's largest wave (16-byte records, L = 4), at
+    which purity_scan, map_indices and iblt_apply are timed again
+    (``ckpt_*`` keys)."""
     from repro_torch.core.hashing import DEFAULT_KEY
     from repro_torch.core.mapping import kmax
     from repro_torch.kernels.map_indices import map_indices
@@ -827,36 +1151,9 @@ def phase_times(diff, enc_items, wave, paths: dict, path_ms: dict,
                    valid * (L + 3)),
             f"U=1 n={n_new} K={K} m={m} mp={mp} valid slots={valid}"),
     }
-    # phase 7's largest wave: U units, chains at their shared mp, as
-    # peel._stage2 builds them
-    (w_state, w_rows, w_side, w_m_units), kw = wave["args"], wave["kw"]
-    w_mp, w_K, w_U = kw["mp"], kw["K"], w_m_units.numel()
-    w_items, w_chks = w_state.sums[w_rows], w_state.checks[w_rows]
-    w_unit = (w_rows // w_mp).to(torch.int32)
-    w_kw = dict(K=w_K, m=w_mp, nbytes=kw["nbytes"], key=kw["key"])
-    w_idx, _ = map_indices(w_items, **w_kw)
-    w_n = w_items.shape[0]
-    w_limit = w_m_units.long()[w_unit.long()][:, None]
-    w_valid = int(((w_idx >= 0) & (w_idx < w_limit)
-                   & (w_side != 0)[:, None]).sum())
-    wave_runs = {
-        "map_indices": (
-            lambda: map_indices(w_items, **w_kw),
-            lambda: map_indices_ref(w_items, **w_kw),
-            _bound(w_n * (L + w_K + 2) * 4,
-                   w_n * 2 * _hash_ops(L)
-                   + int((w_idx < w_mp).sum()) * 28),
-            f"n={w_n} L={L} K={w_K} m={w_mp}"),
-        "iblt_apply": (
-            lambda: iblt_apply(w_items, w_idx, w_chks, w_side, w_unit,
-                               w_m_units, mp=w_mp),
-            lambda: iblt_apply_ref(w_items, w_idx, w_chks, w_side, w_unit,
-                                   w_m_units, mp=w_mp),
-            _bound(w_n * (L + w_K + 4) * 4 + w_U * w_mp * (L + 3) * 4,
-                   w_valid * (L + 3)),
-            f"U={w_U} n={w_n} K={w_K} mp={w_mp} m_u="
-            f"{w_m_units.tolist()} valid slots={w_valid}"),
-    }
+    wave_at = {"wave": {k: v for k, v in wave_runs(wave).items()
+                        if k != "purity_scan"},
+               "ckpt": wave_runs(ckpt_wave)}
     # the encoder's accumulation at the phase-6 shapes: A's 10^6 records
     n_enc, m_enc, K_enc = enc_items.shape[0], M_ENCODE, kmax(M_ENCODE)
     e_kw = dict(K=K_enc, m=m_enc, nbytes=NBYTES, key=key)
@@ -891,14 +1188,15 @@ def phase_times(diff, enc_items, wave, paths: dict, path_ms: dict,
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": None})
-        say(f"phase 8 {name} [{shape}]: {ms:.4f} ms on the card "
+        say(f"phase 10 {name} [{shape}]: {ms:.4f} ms on the card "
             f"({call_ms:.4f} ms a call from Python), plain {plain_ms:.3f} "
             f"ms, bound {bound_ms:.4f} ms ({bound_by}), {launches[name]} "
             f"launches on the main paths {per_path}, their device ms "
             f"{per_path_ms}")
         for tag, at, extra in (
-                ("wave", "phase 7's largest wave", wave_runs),
-                ("encode", "the phase-6 encode shape", encode_runs)):
+                ("wave", "phase 7's largest wave", wave_at["wave"]),
+                ("encode", "the phase-6 encode shape", encode_runs),
+                ("ckpt", "phase 8's largest wave", wave_at["ckpt"])):
             if name not in extra:
                 continue
             kern, plain, (bound_ms, bound_by), shape = extra[name]
@@ -910,7 +1208,7 @@ def phase_times(diff, enc_items, wave, paths: dict, path_ms: dict,
                             f"{tag}_plain_ms": plain_ms,
                             f"{tag}_bound_ms": bound_ms,
                             f"{tag}_shape": shape})
-            say(f"phase 8 {name} at {at} [{shape}]: {ms:.4f} ms on the "
+            say(f"phase 10 {name} at {at} [{shape}]: {ms:.4f} ms on the "
                 f"card ({call_ms:.4f} ms a call from Python), plain "
                 f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return out
@@ -946,14 +1244,18 @@ def main() -> int:
     paths["encode"], path_ms["encode"], enc_items = phase_encode(
         rng, decode + (iblt_encode,))
     paths["sharded"], path_ms["sharded"], wave = phase_sharded(rng, decode)
-    rows = phase_times(diff, enc_items, wave, paths, path_ms, errs)
+    paths["checkpoint"], path_ms["checkpoint"], ckpt_wave = phase_checkpoint(
+        args.seed, decode + (iblt_encode,))
+    phase_reconcile_sets(args.seed)
+    rows = phase_times(diff, enc_items, wave, ckpt_wave, paths, path_ms, errs)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     say(f"total {time.perf_counter() - t0:.1f} s")
     say(smi)
-    say(json.dumps({"kernels": rows}))
+    say(json.dumps({"kernels": rows, "checkpoint": {
+        "launches": paths["checkpoint"], "path_ms": path_ms["checkpoint"]}}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,6 +35,12 @@ def rho(i):
     return 1.0 / (1.0 + ALPHA * np.asarray(i, dtype=np.float64))
 
 
+def expected_degree(m: int) -> float:
+    """E[#mapped indices among the first m] = Σ_{i<m} ρ(i)."""
+    i = np.arange(m, dtype=np.float64)
+    return float(np.sum(1.0 / (1.0 + ALPHA * i)))
+
+
 def kmax(m: int) -> int:
     """Static bound on mapped-index count within the first m coded symbols
     (a Bernstein tail at μ + 8√μ + 10, μ ≈ 2·ln m; ≪ 1e-12)."""

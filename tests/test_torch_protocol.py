@@ -299,10 +299,13 @@ def test_shared_stream_syncs_three_replicas_over_wire():
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch.protocol, repro_torch.kernels.ops, "
             "repro_torch.protocol.sharded, repro_torch.kernels.iblt_encode, "
-            "repro_torch.core.wire, chip_smoke; "
+            "repro_torch.core.wire, repro_torch.checkpoint, "
+            "repro_torch.core.sketch, repro_torch.core.de, "
+            "repro_torch.core.baselines, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
-            "m.startswith('repro.')]; print(bad); sys.exit(bool(bad))")
+            "m.startswith('repro.') or m == 'ml_dtypes']; print(bad); "
+            "sys.exit(bool(bad))")
     env = dict(os.environ,
                PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
     out = subprocess.run([sys.executable, "-c", code], env=env,
