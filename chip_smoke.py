@@ -9,7 +9,8 @@ main paths at the paper's Ethereum state-sync geometry (92-byte records:
 encoder's round trip; and a ``ShardedStream`` serving several replicas
 through one pipelined ``ReconcileEngine`` with batched decodes.  A fourth
 main path repairs a checkpoint store the size of Qwen3-4B's (16-byte
-manifest records), and ``reconcile_sets`` runs once on the card.
+manifest records), and ``reconcile_sets`` runs once on the card.  Last,
+the model stack serves Qwen3-4B at full width and depth in bf16.
 
     python3 chip_smoke.py [--seed N]
 
@@ -23,17 +24,26 @@ Phases, one line each:
      branches on: n = 1, ragged blocks, K = 1, all-pad tails, short items,
      saturation past int32, several lanes an item and one, a tile that
      leaves a block few items; A, B and C also at the checkpoint records'
-     width, L = 4)
-  3. one-shot decode of d = 100,000 items at m = 160,000
+     width, L = 4; A and C with the live count read on the card)
+  3. one-shot decode of d = 100,000 items at m = 160,000, with its host
+     reads (the wave loop reads its stop flag once a chunk of waves); a
+     small decode on the card twice (the second on the first's kept wave
+     graph) against the plain decode
   4. main path 1: |A| = 1,000,000 records, d = 10,000, a wire session
-     with backend="device"
+     with backend="device"; host reads a decode
   5. max_diff overflow: the host fallback fires, is counted, stays exact
   6. main path 2: the device encoder's round trip — encode A and B
      (1,000,000 records each, d = 10,000) at m = 20,480 on the card,
      subtract there, decode; A's symbols equal the host encoder's
   7. main path 3: one 8-shard ShardedStream of the same 10⁶ records
      serving 3 replicas (d = 10,000 each, partly shared) through one
-     pipelined ReconcileEngine; a serial rerun uses the same symbols
+     pipelined ReconcileEngine; each dispatch runs under the sync debug
+     mode "error"; host reads per dispatch and whether ready() was False
+     at the first poll; the hidden share: of the card's time in the waves
+     (an event pair around each replay), the part after the decode call
+     that enqueued the wave returned; a rerun under torch.profiler gives
+     the card's busy time, its largest items, and the part outside every
+     decode call; a serial rerun uses the same symbols
   8. main path 4: a bf16 state_dict of Qwen3-4B's shapes (4.0·10⁹
      parameters, 30,833 chunks of 256 KiB) saved by a stale replica at
      step 100; the peer re-draws layers 32-35 and saves step 110;
@@ -45,16 +55,26 @@ Phases, one line each:
  10. the kernels at the phase-3 and phase-6 shapes, map_indices and
      iblt_apply again at phase 7's largest wave, map_indices again at the
      phase-6 encode shape, and A, B, C at phase 8's largest wave: card
-     time, plain time, bound
+     time, plain time, bound; A and C at the first wave and phase 7's
+     wave also over every slot without the live count; one wave of the
+     loop op by op and as a CUDA graph: host and card time
+ 11. the model stack: ``get_config("qwen3-4b")`` unchanged (bf16, 36
+     layers, full width), random weights from the seed on the card; 4
+     prompts of 1,024 tokens, prefill, 32 greedy decode steps at a 1,056
+     context, the decode against a teacher-forced forward, the card
+     against the CPU in fp32 at full width and 2 layers
 Launch counts are set to 0 just before each main path and read just after
-it; each launch of a main path is also timed on the card with a CUDA event
-pair, summed per kernel and path (``path_ms``).  Then the card's name and
+it; each main path runs under torch.profiler (CUDA activity only), which
+must trace exactly the counted launches of each kernel, op by op or in a
+wave graph's replays, and their device times are summed per kernel and
+path (``path_ms``).  Then the card's name and
 power limit, the kernels JSON line and the result line.  Exits nonzero
 without CUDA, outside the repository, or on any failed check.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import shutil
@@ -95,6 +115,10 @@ QWEN3_4B = dict(layers=36, d_model=2560, heads=32, kv_heads=8, head_dim=128,
 TUNED_LAYERS = range(32, 36)
 CKPT_PARAMS, CKPT_CHUNKS, CKPT_DIFF = 4_022_468_096, 30_833, 3_096
 N_SETS, D_SETS, SET_BYTES = 1_000_000, 1_000, 32
+# phase 11: the model stack serving get_config("qwen3-4b") unchanged
+SERVE_B, SERVE_PROMPT, SERVE_CTX, SERVE_STEPS = 4, 1_024, 1_056, 32
+SERVE_TOL = 0.25            # bf16: decode logits vs the teacher-forced pass
+CARD_CPU_LAYERS, CARD_CPU_S, CARD_CPU_TOL = 2, 128, 1e-3   # fp32
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "map_indices": ("src/repro_torch/csrc/map_indices.cu",
                     "src/repro/kernels/map_indices.py:41"),
@@ -185,70 +209,119 @@ def read_launches(mods) -> dict:
     return {fn.__name__: fn.launches for fn in mods}
 
 
+# The name each kernel's __global__ function has in a trace of the card.
+KERNEL_SYMBOLS = {"purity_scan": "purity_scan_kernel",
+                  "map_indices": "map_kernel<",
+                  "iblt_apply": "scatter_kernel<0>",
+                  "iblt_encode": "scatter_kernel<1>"}
+
+
 @contextlib.contextmanager
 def launch_spans(names):
-    """Time every launch of the kernels ``names`` on the card while the
-    block runs.  Each kernel's ctypes launch function (the one
-    ``_build.launcher`` hands the wrappers) is wrapped in a CUDA event pair
-    on the current stream, so only the kernel is timed and the wrappers
-    keep counting ``.launches`` on their own names.  Yields {name: [(start,
-    end) events]}; read them after a synchronise."""
-    from repro_torch.kernels import _build
-    real = {name: _build.launcher(name) for name in names}
+    """Trace the card while the block runs (``torch.profiler``, CUDA
+    activity only) and collect the device time of every launch of the
+    kernels ``names``, launched op by op or by a CUDA graph's replay alike.
+    Yields {name: [device ms of each launch]}, filled when the block
+    ends."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     spans = {name: [] for name in names}
-
-    def timed_launch(name, fn):
-        def call(*args):
-            pair = (torch.cuda.Event(enable_timing=True),
-                    torch.cuda.Event(enable_timing=True))
-            pair[0].record()
-            rc = fn(*args)
-            pair[1].record()
-            spans[name].append(pair)
-            return rc
-        return call
-
-    for name, fn in real.items():
-        _build._loaded[name] = timed_launch(name, fn)
-    try:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device=DEVICE).add_(1)    # the tracer is up
+        torch.cuda.synchronize()
+        time.sleep(0.05)
         yield spans
-    finally:
-        _build._loaded.update(real)
+        torch.cuda.synchronize()
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name in names:
+            if KERNEL_SYMBOLS[name] in e.name:
+                spans[name].append(e.time_range.elapsed_us() * 1e-3)
+    spans["_all"] = collections.Counter(
+        e.name[:60] for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
 @contextlib.contextmanager
 def largest_wave():
-    """Record, while the block runs, the inputs of the removal stage
-    (map_indices + iblt_apply) of the wave that recovers the most items,
-    by wrapping ``peel._stage2``.  Yields a dict: ``args`` (state, rows,
-    side, m_units) and ``kw``; the state is the one that wave's purity
-    scan read (each wave makes a new one)."""
-    from repro_torch.kernels import peel
-    real = peel._stage2
-    wave = {}
+    """The inputs of the wave that recovers the most items among every
+    decode the block runs.  While the block runs, each wave loop the
+    device decoders build (``ops.WaveLoop``) has its three input tensors
+    copied on the card (the loop updates them in place); nothing is read
+    back.  When the block ends, each recorded decode runs again op by op,
+    its waves read one by one, and the dict the block got is filled with
+    ``n`` and ``args`` = (loop, state, wave): the state as that wave's
+    purity scan read it.  The kernels' ``.launches`` are left as the block
+    left them."""
+    from repro_torch.kernels import ops, peel
+    made, real, out = [], ops.WaveLoop, {}
 
-    def stage2_rec(state, rows, side, m_units, **kw):
-        if rows.numel() > wave.get("n", 0):
-            wave.update(n=rows.numel(), args=(state, rows, side, m_units),
-                        kw=kw)
-        return real(state, rows, side, m_units, **kw)
+    def record(*args, **kw):
+        made.append(([a.clone() for a in args[:3]] + list(args[3:]), kw))
+        return real(*args, **kw)
 
-    peel._stage2 = stage2_rec
+    ops.WaveLoop = record
     try:
-        yield wave
+        yield out
     finally:
-        peel._stage2 = real
+        ops.WaveLoop = real
+    kernels = (peel.map_indices, peel.purity_scan, peel.iblt_apply)
+    counted = [fn.launches for fn in kernels]
+    for args, kw in made:
+        loop = real(*args, **kw)
+        while True:
+            st = loop.state
+            before = st._replace(sums=st.sums.clone(),
+                                 checks=st.checks.clone(),
+                                 counts=st.counts.clone())
+            wave = loop._stage1(st)
+            n = int(wave.count)
+            if n > out.get("n", -1):
+                out.update(n=n, args=(loop, before, wave))
+            loop._stage2(st, wave)
+            if not bool(st.live):
+                break
+    for fn, c in zip(kernels, counted):
+        fn.launches = c
+
+
+def make_loop(diff):
+    """The wave loop of ``decode_device`` on host difference symbols
+    ``diff``, on the card, before its first wave."""
+    from repro_torch.core.hashing import DEFAULT_KEY
+    from repro_torch.core.mapping import kmax
+    from repro_torch.kernels.ops import host_symbols_to_device
+    from repro_torch.kernels.peel import WaveLoop
+    sums, checks, counts = host_symbols_to_device(diff, DEVICE)
+    m, L = sums.shape
+    mp = ((m + 255) // 256) * 256
+
+    def pad(x):
+        out = torch.zeros((mp, x.shape[1]), dtype=torch.int32, device=DEVICE)
+        out[:m] = x
+        return out
+
+    return WaveLoop(pad(sums), pad(checks), pad(counts.reshape(m, 1)), [m],
+                    nbytes=NBYTES, key=DEFAULT_KEY, max_diff=mp, K=kmax(mp))
+
+
+def first_wave(diff):
+    """(loop, state, wave) of the first wave of ``decode_device`` on host
+    difference symbols ``diff``, on the card."""
+    loop = make_loop(diff)
+    return loop, loop.state, loop._stage1(loop.state)
 
 
 def spans_ms(spans: dict, launches: dict) -> dict:
-    """Each kernel's summed device ms; every counted launch was timed."""
-    torch.cuda.synchronize()
-    for name, pairs in spans.items():
-        check(len(pairs) == launches.get(name, 0),
-              f"{name}: {len(pairs)} timed launches, {launches.get(name)} "
-              "counted")
-    return {name: sum(a.elapsed_time(b) for a, b in pairs)
-            for name, pairs in spans.items()}
+    """Each kernel's summed device ms; every counted launch was traced on
+    the card, and no other."""
+    traced = spans.pop("_all")
+    for name, ms in spans.items():
+        check(len(ms) == launches.get(name, 0),
+              f"{name}: {len(ms)} launches traced on the card, "
+              f"{launches.get(name)} counted; traced kernels "
+              f"{traced.most_common(12)}")
+    return {name: sum(ms) for name, ms in spans.items()}
 
 
 def words_on_card(records: np.ndarray) -> torch.Tensor:
@@ -379,6 +452,7 @@ def phase_kernels(rng, errs: dict, cases_rng) -> None:
     cases += scatter_cases(cases_rng, errs)
     cases += map_cases(cases_rng, errs)
     cases += narrow_cases(cases_rng, errs)
+    cases += count_cases(cases_rng, errs)
     say(f"phase 2 kernels vs plain: {cases} cases bit-equal "
         f"(max |err| {errs})")
 
@@ -582,10 +656,54 @@ def narrow_cases(rng, errs: dict) -> int:
     return cases
 
 
+def count_cases(rng, errs: dict) -> int:
+    """A and C with the live count read on the card (``count``, as the
+    wave loop launches them over its fixed slots): counts of 0, 1, a block
+    boundary, half, all and past the end; A's rows up to the count and C's
+    whole delta bit-equal to the plain versions.  Returns the number of
+    cases."""
+    from repro_torch.core.hashing import DEFAULT_KEY
+    from repro_torch.core.mapping import kmax
+    from repro_torch.kernels.map_indices import map_indices
+    from repro_torch.kernels.peel import iblt_apply
+    from repro_torch.kernels.ref import iblt_apply_ref, map_indices_ref
+    n, L, U, mp = 6_000, 23, 4, 2_048
+    items = rand_i32(rng, (n, L))
+    kw = dict(K=kmax(mp), m=mp, nbytes=NBYTES, key=DEFAULT_KEY)
+    sides = torch.from_numpy(rng.integers(-1, 2, size=n, dtype=np.int32)
+                             ).to(DEVICE)
+    unit = torch.from_numpy(np.sort(rng.integers(0, U, size=n,
+                                                 dtype=np.int32))).to(DEVICE)
+    m_units = torch.tensor([mp, 1_000, 0, 2_000], dtype=torch.int32,
+                           device=DEVICE)
+    cases = 0
+    for live in (0, 1, 128, n // 2, n, n + 7):
+        count = torch.tensor([live], dtype=torch.int64, device=DEVICE)
+        upto = min(live, n)
+        got = map_indices(items, count=count, **kw)
+        want = map_indices_ref(items, count=count, **kw)
+        for g, w in zip(got, want):
+            e = max_abs_err(g[:upto], w[:upto])
+            check(e == 0, f"map_indices count={live}: max |err| {e}")
+            errs["map_indices"] = max(errs["map_indices"], e)
+        idx, chk = map_indices(items, **kw)
+        got = iblt_apply(items, idx, chk, sides, unit, m_units, mp=mp,
+                         count=count)
+        want = iblt_apply_ref(items, idx, chk, sides, unit, m_units, mp=mp,
+                              count=count)
+        for g, w in zip(got, want):
+            e = max_abs_err(g, w)
+            check(e == 0, f"iblt_apply count={live}: max |err| {e}")
+            errs["iblt_apply"] = max(errs["iblt_apply"], e)
+        cases += 2
+    return cases
+
+
 def phase_one_shot(rng, kernels):
     from repro_torch.core import encode
     from repro_torch.core.hashing import bytes_to_words
     from repro_torch.kernels.ops import decode_device, host_symbols_to_device
+    from repro_torch.kernels.peel import WAVES_PER_CHUNK, read_back
     d, m = D_ONE_SHOT, M_ONE_SHOT
     recs = random_records(rng, d)
     a, b = recs[: d // 2], recs[d // 2:]
@@ -594,10 +712,13 @@ def phase_one_shot(rng, kernels):
     enc_s = time.perf_counter() - t0
     args = host_symbols_to_device(diff, DEVICE)
     reset_launches(kernels)
+    read_back.count = 0
     t0 = time.perf_counter()
     res = decode_device(*args, nbytes=NBYTES, device=DEVICE)
     dec_s = time.perf_counter() - t0
-    launches = read_launches(kernels)
+    launches, reads = read_launches(kernels), read_back.count
+    check(reads <= -(-res.rounds // WAVES_PER_CHUNK) + 1,
+          f"one-shot: {reads} host reads for {res.rounds} waves")
     want = as_set(bytes_to_words(a, NBYTES), np.ones(len(a))) | \
         as_set(bytes_to_words(b, NBYTES), -np.ones(len(b)))
     check(res.success and not res.overflow, "one-shot decode failed")
@@ -605,23 +726,29 @@ def phase_one_shot(rng, kernels):
     # the card against the plain torch twins on a small input
     small = encode(a[:250], NBYTES, 1100).subtract(encode(b[:250], NBYTES,
                                                           1100))
-    on_card = decode_device(*host_symbols_to_device(small, DEVICE),
-                            nbytes=NBYTES, device=DEVICE)
     on_cpu = decode_device(*host_symbols_to_device(small, "cpu"),
                            nbytes=NBYTES, device="cpu")
-    check(on_card.success and on_card.items.shape[0] == 500,
-          "small decode failed")
-    for f in ("items", "hashes", "sides"):
-        check(np.array_equal(getattr(on_card, f), getattr(on_cpu, f)),
-              f"card and plain decode differ in {f}")
-    check((on_card.rounds, on_card.success) == (on_cpu.rounds, on_cpu.success)
-          and all(np.array_equal(getattr(on_card.residual, f),
-                                 getattr(on_cpu.residual, f))
-                  for f in ("sums", "checks", "counts")),
-          "card and plain decode differ in rounds or residual")
+    # twice on the card: the second decode runs on the first one's kept
+    # wave graph and buffers
+    for _ in range(2):
+        on_card = decode_device(*host_symbols_to_device(small, DEVICE),
+                                nbytes=NBYTES, device=DEVICE)
+        check(on_card.success and on_card.items.shape[0] == 500,
+              "small decode failed")
+        for f in ("items", "hashes", "sides"):
+            check(np.array_equal(getattr(on_card, f), getattr(on_cpu, f)),
+                  f"card and plain decode differ in {f}")
+        check((on_card.rounds, on_card.success) ==
+              (on_cpu.rounds, on_cpu.success)
+              and all(np.array_equal(getattr(on_card.residual, f),
+                                     getattr(on_cpu.residual, f))
+                      for f in ("sums", "checks", "counts")),
+              "card and plain decode differ in rounds or residual")
     say(f"phase 3 one-shot decode: d={d} m={m} waves={res.rounds} "
-        f"decode {dec_s:.3f} s (host encode {enc_s:.1f} s); exact, "
-        f"no overflow; launches {launches}; card == plain decode at d=500")
+        f"decode {dec_s:.3f} s (host encode {enc_s:.1f} s), {reads} host "
+        f"reads at {WAVES_PER_CHUNK} waves a read; exact, "
+        f"no overflow; launches {launches}; card == plain decode at d=500, "
+        f"twice")
     return diff
 
 
@@ -629,6 +756,7 @@ def phase_session(rng, kernels) -> tuple[dict, dict]:
     from repro_torch.core import Encoder
     from repro_torch.core.hashing import bytes_to_words
     from repro_torch.kernels import ops
+    from repro_torch.kernels.peel import read_back
     from repro_torch.protocol import Session, SymbolStream, run_session
     n, d = N_SESSION, D_SESSION
     recs = random_records(rng, n + d // 2)
@@ -648,6 +776,7 @@ def phase_session(rng, kernels) -> tuple[dict, dict]:
     real = ops.decode_device
     ops.decode_device = timed(real, decode_s)
     reset_launches(kernels)
+    read_back.count = 0
     t0 = time.perf_counter()
     try:
         with launch_spans([fn.__name__ for fn in kernels]) as timed_launches:
@@ -655,7 +784,7 @@ def phase_session(rng, kernels) -> tuple[dict, dict]:
     finally:
         ops.decode_device = real
     session_s = time.perf_counter() - t0
-    launches = read_launches(kernels)
+    launches, reads = read_launches(kernels), read_back.count
     path_ms = spans_ms(timed_launches, launches)
     check(as_set(rep.only_remote) ==
           as_set(bytes_to_words(recs[n - d // 2: n], NBYTES)),
@@ -669,7 +798,8 @@ def phase_session(rng, kernels) -> tuple[dict, dict]:
         f"overhead={rep.overhead(d):.3f} bytes_on_wire={rep.bytes_received} "
         f"session {session_s:.2f} s = serve {sum(serve_s):.2f} s + absorb "
         f"{sum(absorb_s):.2f} s + device decode {sum(decode_s):.3f} s over "
-        f"{len(decode_s)} windows + rest (set-up {setup_s:.1f} s); "
+        f"{len(decode_s)} windows ({reads / len(decode_s):.2f} host reads a "
+        f"decode) + rest (set-up {setup_s:.1f} s); "
         f"host_fallbacks=0; launches {launches}; kernel ms {path_ms}")
     return launches, path_ms
 
@@ -747,12 +877,78 @@ def phase_encode(rng, kernels) -> tuple[dict, dict, torch.Tensor]:
     return launches, path_ms, ta
 
 
+def _merged(spans) -> list:
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def pipelined_overlap(run) -> tuple[float, float, float, list]:
+    """Run ``run()`` (a pipelined engine run returning its seconds) under
+    ``torch.profiler`` with every decode call (dispatch, poll, read-back)
+    marked.  Returns (the share of the card's busy time that lies outside
+    every decode call, the card's busy seconds, the run's seconds, the
+    four names of device work with the most time and their ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import ops
+    Pending = ops.PendingBatchedDecode
+    real = (ops.decode_device_batched_start, Pending.ready, Pending.wait)
+
+    def marked(fn):
+        def call(*args, **kw):
+            with record_function("decode call"):
+                return fn(*args, **kw)
+        return call
+
+    ops.decode_device_batched_start = marked(real[0])
+    Pending.ready, Pending.wait = marked(real[1]), marked(real[2])
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_s = run()
+            torch.cuda.synchronize()
+    finally:
+        ops.decode_device_batched_start = real[0]
+        Pending.ready, Pending.wait = real[1], real[2]
+    # the card's own work: the profiler also mirrors each "decode call"
+    # range onto the card's timeline, and that span is not work
+    events = prof.events()
+    work = [e for e in events if e.device_type == DeviceType.CUDA
+            and e.name != "decode call"]
+    busy = _merged((e.time_range.start, e.time_range.end) for e in work)
+    calls = _merged((e.time_range.start, e.time_range.end) for e in events
+                    if e.name == "decode call"
+                    and e.device_type == DeviceType.CPU)
+    total = sum(b - a for a, b in busy)
+    check(total > 0 and calls, "the profiler saw no decode on the card")
+    by_name = collections.Counter()
+    for e in work:
+        by_name[e.name[:40]] += e.time_range.elapsed_us() * 1e-3
+    top = [(name, round(ms, 3)) for name, ms in by_name.most_common(4)]
+    inside, k = 0.0, 0
+    for a, b in busy:
+        while k < len(calls) and calls[k][1] <= a:
+            k += 1
+        j = k
+        while j < len(calls) and calls[j][0] < b:
+            inside += min(b, calls[j][1]) - max(a, calls[j][0])
+            j += 1
+    return 1 - inside / total, total * 1e-6, run_s, top
+
+
 def phase_sharded(rng, kernels) -> tuple[dict, dict, dict]:
     """Main path 3: one ShardedStream, REPLICAS stale replicas, one
     pipelined engine with batched device decodes.  Also returns the
     inputs of the wave with the most items, for phase 10."""
     from repro_torch.core.hashing import bytes_to_words
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.peel import WAVES_PER_CHUNK, read_back
     from repro_torch.protocol import ReconcileEngine, ShardedStream
     n, d = N_SHARDED, D_SHARDED
     half, step = d // 2, d // 4       # consecutive replicas share half
@@ -787,25 +983,63 @@ def phase_sharded(rng, kernels) -> tuple[dict, dict, dict]:
 
     # where the time goes: serving payloads (Alice's shard encoders),
     # absorbing them (the replicas' encoders, subtraction, chain walks),
-    # the device decode split into dispatch and read-back
-    serve_s, absorb_s, start_s, wait_s, sizes = [], [], [], [], []
-    spans = []
+    # the device decode split into dispatch, polls and read-back.  Each
+    # dispatch runs under the sync debug mode "error", so a hidden wait for
+    # the card inside it raises.  Every wave (a replay of its loop's CUDA
+    # graph) is timed on the card by an event pair, beside the host time
+    # at which the decode call that enqueued it returned: the wave's card
+    # time past that moment ran while the host was out of every decode
+    # call, ingesting.
+    serve_s, absorb_s, start_s, poll_s, wait_s, sizes = [], [], [], [], [], []
+    pendings, first_poll, returns, waves_ev = [], {}, [], []
     real_payload, real_start = stream.payload, ops.decode_device_batched_start
-    real_wait = ops.PendingBatchedDecode.wait
+    Pending = ops.PendingBatchedDecode
+    real_wait, real_ready = Pending.wait, Pending.ready
+    real_replay = _build.CountedGraph.replay
+
+    def replay(self):
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        real_replay(self)
+        pair[1].record()
+        waves_ev.append((*pair, len(returns)))
+
+    def returned(fn):
+        def call(*args, **kw):
+            try:
+                return fn(*args, **kw)
+            finally:
+                returns.append(time.perf_counter())
+        return call
 
     def start(units, **kw):
         sizes.append(len(units))
-        span = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        span[0].record()
-        pending = real_start(units, **kw)
-        span[1].record()
-        spans.append(span)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = real_start(units, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        pendings.append(pending)
         return pending
 
+    def ready(self):
+        out = real_ready(self)
+        first_poll.setdefault(id(self), out)
+        return out
+
     stream.payload = timed(real_payload, serve_s)
-    ops.decode_device_batched_start = timed(start, start_s)
-    ops.PendingBatchedDecode.wait = timed(real_wait, wait_s)
+    ops.decode_device_batched_start = timed(returned(start), start_s)
+    Pending.ready = timed(returned(ready), poll_s)
+    Pending.wait = timed(returned(real_wait), wait_s)
+    _build.CountedGraph.replay = replay
     reset_launches(kernels)
+    read_back.count = 0
+    torch.cuda.synchronize()
+    clock = torch.cuda.Event(enable_timing=True)    # the two clocks paired:
+    clock.record()                                  # the idle card runs it
+    t_clock = time.perf_counter()                   # within microseconds
+    clock.synchronize()
     try:
         with largest_wave() as wave, \
                 launch_spans([fn.__name__ for fn in kernels]) as timed_launches:
@@ -813,7 +1047,8 @@ def phase_sharded(rng, kernels) -> tuple[dict, dict, dict]:
     finally:
         stream.payload = real_payload
         ops.decode_device_batched_start = real_start
-        ops.PendingBatchedDecode.wait = real_wait
+        Pending.wait, Pending.ready = real_wait, real_ready
+        _build.CountedGraph.replay = real_replay
     launches = read_launches(kernels)
     path_ms = spans_ms(timed_launches, launches)
     for rep, sess, (_, remote_only, local_only) in zip(reports, sessions,
@@ -828,10 +1063,29 @@ def phase_sharded(rng, kernels) -> tuple[dict, dict, dict]:
     check(all(v > 0 for v in launches.values()),
           f"a kernel never launched on the sharded path: {launches}")
     check(max(sizes) > 1 and wave, "no decode dispatch batched two units")
-    torch.cuda.synchronize()
-    device_ms = [a.elapsed_time(b) for a, b in spans]
-    decode_s = sum(start_s) + sum(wait_s)
-    hidden = max(0.0, 1 - decode_s / max(sum(device_ms) * 1e-3, 1e-9))
+    reads, waves = [], []
+    for pending in pendings:
+        waves.append(pending.wait()[0].rounds)
+        reads.append(pending.host_reads)
+        check(reads[-1] <= -(-waves[-1] // WAVES_PER_CHUNK) + 1,
+              f"a dispatch read the card {reads[-1]} times for "
+              f"{waves[-1]} waves")
+    check(sum(reads) == read_back.count,
+          f"{read_back.count} host reads, {sum(reads)} counted by dispatches")
+    not_ready = sum(not v for v in first_poll.values())
+    wave_s = hidden_s = 0.0
+    for a, b, call in waves_ev:
+        t_a = t_clock + clock.elapsed_time(a) * 1e-3
+        t_b = t_clock + clock.elapsed_time(b) * 1e-3
+        wave_s += t_b - t_a
+        hidden_s += max(0.0, t_b - max(t_a, returns[call]))
+    check(waves_ev and wave_s > 0, "no wave was replayed on the card")
+    decode_s = sum(start_s) + sum(poll_s) + sum(wait_s)
+    # the same pipelined run again under the profiler: the card's busy
+    # time (kernels and copies, merged) and the part of it that ran while
+    # the host was outside every decode call, i.e. ingesting
+    hidden, busy_s, prof_run_s, top = pipelined_overlap(
+        lambda: run(True)[3])
     _, _, serial, serial_s = run(False)
     check([r.symbols_used for r in serial] ==
           [r.symbols_used for r in reports],
@@ -845,9 +1099,19 @@ def phase_sharded(rng, kernels) -> tuple[dict, dict, dict]:
         f"dispatches={engine.dispatches} units/dispatch max {max(sizes)}; "
         f"pipelined run {run_s:.2f} s = serve {sum(serve_s):.2f} s + "
         f"absorb {sum(absorb_s):.2f} s + decode {decode_s:.3f} s "
-        f"(dispatch {sum(start_s):.3f} s, read-back {sum(wait_s):.3f} s; "
-        f"waves on the card {sum(device_ms) * 1e-3:.3f} s, hidden behind "
-        f"ingest {hidden:.3f}) + rest; serial rerun {serial_s:.2f} s "
+        f"(dispatch {sum(start_s):.3f} s, polls {sum(poll_s):.3f} s over "
+        f"{len(poll_s)}, read-back {sum(wait_s):.3f} s; waves per "
+        f"dispatch {waves}, host reads per dispatch {reads} at "
+        f"{WAVES_PER_CHUNK} waves a read; ready() False at the first poll "
+        f"for {not_ready} of {len(first_poll)} polled dispatches; no sync "
+        f"inside any dispatch; hidden share {hidden_s / wave_s:.4f}: of the "
+        f"card's {wave_s * 1e3:.3f} ms over {len(waves_ev)} waves, "
+        f"{hidden_s * 1e3:.3f} ms ran after the call that enqueued them "
+        f"returned) + rest; profiled rerun {prof_run_s:.2f} s: "
+        f"the card busy {busy_s:.4f} s (idle {1 - busy_s / prof_run_s:.4f};"
+        f" by name {top}), {hidden:.4f} of it outside every decode call; "
+        f"serial rerun "
+        f"{serial_s:.2f} s "
         f"(caches warm), same symbols_used, bytes_on_wire="
         f"{[r.bytes_received for r in serial]}; host_fallbacks=0 (set-up "
         f"{setup_s:.1f} s); launches {launches}; kernel ms {path_ms}")
@@ -1024,6 +1288,170 @@ def phase_reconcile_sets(seed: int) -> None:
         f"{run_s:.2f} s (Sketches {setup_s:.1f} s)")
 
 
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def _pad_caches(states, S_ctx: int) -> dict:
+    """Prefill states -> decode caches of S_ctx positions (zero past the
+    prompt; every block of the config attends globally)."""
+    def pad(c):
+        return torch.nn.functional.pad(c, (0, 0, 0, 0, 0, S_ctx - c.shape[-3]))
+    return {part: [{k: pad(v) for k, v in d.items()} for d in states[part]]
+            for part in ("periods", "tail")}
+
+
+def step_busy(fn) -> tuple[float, float]:
+    """(ms of kernels on the card, ms of wall time) of one call of ``fn``
+    under ``torch.profiler``, the card idle before and synchronised after;
+    kernel intervals are merged, so overlapping kernels count once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, reach = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    check(busy_us > 0, "the profiler saw no kernel on the card")
+    return busy_us * 1e-3, wall_ms
+
+
+def phase_serve(seed: int) -> None:
+    """Phase 11: the attention-family model stack serving Qwen3-4B at full
+    width and depth in bf16 (``get_config("qwen3-4b")`` unchanged, weights
+    from the port's init on the card): SERVE_B prompts of SERVE_PROMPT
+    random tokens, ``prefill``, caches padded to SERVE_CTX, SERVE_STEPS
+    greedy ``decode_step``s.  Checks: finite logits, no padded-vocab id,
+    the decode's logits against one teacher-forced forward of prompt plus
+    generated tokens (max |diff| <= SERVE_TOL), and the card against the
+    CPU in fp32 at full width and CARD_CPU_LAYERS layers (max |diff| <=
+    CARD_CPU_TOL)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-4b")
+    B, P, steps = SERVE_B, SERVE_PROMPT, SERVE_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = _tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(all(t.dtype == torch.bfloat16 for t in leaves), "weights not bf16")
+    rng = np.random.default_rng([seed, 5])
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, P))) \
+        .to(DEVICE)
+    with torch.inference_mode():
+        # warm-up at the timed shapes: a first call at a new shape costs
+        # ~1 s more than the next
+        _, warm = model.prefill(params, {"tokens": prompts})
+        model.decode_step(params, prompts[:, :1], _pad_caches(warm, SERVE_CTX),
+                          torch.full((B,), P, device=DEVICE))
+        del warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, states = model.prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        caches = _pad_caches(states, SERVE_CTX)
+        del states
+        tok = last[:, -1].argmax(dim=-1, keepdim=True)
+        fed, step_logits = [tok], []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for t in range(steps):
+            pos = torch.full((B,), P + t, device=DEVICE)
+            lg, caches = model.decode_step(params, tok, caches, pos)
+            step_logits.append(lg[:, 0])
+            tok = lg[:, 0].argmax(dim=-1, keepdim=True)
+            fed.append(tok)
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / steps
+        decoded = torch.stack(step_logits, dim=1)          # (B, steps, V)
+        ids = torch.cat(fed, dim=1)                        # (B, steps + 1)
+        check(bool(torch.isfinite(last).all()) and
+              bool(torch.isfinite(decoded).all()), "non-finite logits")
+        check(int(ids.max()) < cfg.vocab, "a padded-vocab id was chosen")
+        # teacher forcing: the prompt and the fed tokens in one forward
+        seq = torch.cat([prompts, ids[:, :steps]], dim=1)
+        h, _, _ = model._stack(params, model._embed_inputs(
+            params, {"tokens": seq}))
+        forced = model.logits(params, h[:, P:P + steps])
+        diff = float((forced - decoded).abs().max())
+        agree = float((forced.argmax(-1) == decoded.argmax(-1)).float()
+                      .mean())
+        peak = torch.cuda.max_memory_allocated()
+        # one more step (rewriting the last slot) under the profiler: the
+        # card's kernel time against the step's wall time
+        busy_ms, wall_ms = step_busy(lambda: model.decode_step(
+            params, tok, caches, torch.full((B,), P + steps - 1,
+                                            device=DEVICE)))
+    check(diff <= SERVE_TOL, f"decode vs teacher-forced forward: max |diff| "
+          f"{diff} > {SERVE_TOL}")
+    del params, caches, h, forced, decoded, last
+    torch.cuda.empty_cache()
+    # the card against the CPU: full width, CARD_CPU_LAYERS layers, fp32
+    small = cfg.scaled(n_layers=CARD_CPU_LAYERS, dtype="float32")
+    cpu_model = build_model(small, device="cpu")
+    cpu_params = cpu_model.init(torch.Generator().manual_seed(seed))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, CARD_CPU_S)))
+    outs = []
+    with torch.inference_mode():
+        for dev in ("cpu", DEVICE):
+            m = build_model(small, device=dev)
+            p = cpu_params if dev == "cpu" else \
+                _tree_to(cpu_params, torch.device(dev))
+            h, _, _ = m._stack(p, m._embed_inputs(p, {"tokens":
+                                                      toks.to(dev)}))
+            outs.append(m.logits(p, h).cpu())
+    cpu_diff = float((outs[0] - outs[1]).abs().max())
+    check(cpu_diff <= CARD_CPU_TOL, f"card vs CPU fp32: max |diff| "
+          f"{cpu_diff} > {CARD_CPU_TOL}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    say(f"phase 11 serve Qwen3-4B: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to "
+        f"{cfg.padded_vocab}, bf16: {n_params:,} parameters, {n_bytes:,} "
+        f"bytes (init {init_s:.2f} s); B={B} prompts of {P} tokens: prefill "
+        f"{prefill_s:.3f} s = {B * P / prefill_s:,.0f} tokens/s; {steps} "
+        f"greedy decode steps at S_ctx={SERVE_CTX}: {step_ms:.2f} ms a step "
+        f"({B * 1e3 / step_ms:,.0f} tokens/s); logits finite, no padded id; "
+        f"one step under the profiler: kernels {busy_ms:.2f} ms of "
+        f"{wall_ms:.2f} ms wall (card idle {1 - busy_ms / wall_ms:.3f}); "
+        f"teacher-forced max |diff| {diff:.4f} (tol {SERVE_TOL}), argmax "
+        f"agreement {agree:.4f}; card vs CPU fp32 at {CARD_CPU_LAYERS} "
+        f"layers, S={CARD_CPU_S}: max |diff| {cpu_diff:.2e} (tol "
+        f"{CARD_CPU_TOL}); max_memory_allocated {peak:,} bytes; {smi}")
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
 def _hash_ops(L: int) -> int:
     """32-bit integer operations of one SipHash-2-4 over L words."""
     siprounds = 2 * (L // 2) + 2 + 4
@@ -1037,120 +1465,123 @@ def _bound(nbytes: float, ops: float):
 
 
 def wave_runs(wave: dict) -> dict:
-    """B, A and C at a wave recorded by :func:`largest_wave`: U units, the
-    chains at their shared mp, as ``peel._stage2`` builds them.  Each value
-    is (kernel, plain, (bound ms, bound by), shape)."""
+    """B, A and C at a wave recorded by :func:`largest_wave` or made by
+    :func:`first_wave`: U units, the chains at their shared mp, as
+    ``WaveLoop._stage2`` launches them, over the wave's fixed slots with
+    the live count read on the card.  Each value is (kernel, plain,
+    (bound ms, bound by), shape, the kernel over every slot without the
+    count or None); map_indices keeps the live rows only (the kernel
+    leaves the others unwritten)."""
     from repro_torch.kernels.map_indices import map_indices
     from repro_torch.kernels.peel import iblt_apply, purity_scan
     from repro_torch.kernels.ref import (iblt_apply_ref, map_indices_ref,
                                          purity_ref)
-    (state, rows, side, m_units), kw = wave["args"], wave["kw"]
-    mp, K, U, L = kw["mp"], kw["K"], m_units.numel(), state.sums.shape[1]
-    nbytes, key = kw["nbytes"], kw["key"]
-    items, chks = state.sums[rows], state.checks[rows]
-    unit = (rows // mp).to(torch.int32)
+    loop, state, w = wave["args"]
+    mp, K, U, L = loop.mp, loop.K, loop.U, state.sums.shape[1]
+    nbytes, key = loop.nbytes, loop.key
+    n, slots = int(w.count), w.items.shape[0]
     m_kw = dict(K=K, m=mp, nbytes=nbytes, key=key)
-    idx, _ = map_indices(items, **m_kw)
-    n = items.shape[0]
-    limit = m_units.long()[unit.long()][:, None]
-    valid = int(((idx >= 0) & (idx < limit) & (side != 0)[:, None]).sum())
+    idx, _ = map_indices(w.items, count=w.count, **m_kw)
+    live = idx[:n]
+    limit = loop.m_units.long()[w.unit[:n].long()][:, None]
+    valid = int(((live >= 0) & (live < limit) &
+                 (w.sides[:n] != 0)[:, None]).sum())
     nonempty = int((state.counts != 0).sum())
+    apply_args = (w.items, idx, w.chks, w.sides, w.unit, loop.m_units)
     return {
         "purity_scan": (
             lambda: purity_scan(*state[:3], key=key, nbytes=nbytes),
             lambda: purity_ref(*state[:3], key=key, nbytes=nbytes),
             _bound(U * mp * (L + 3) * 4 + U * mp * 4,
                    nonempty * (_hash_ops(L) + 4)),
-            f"U={U} mp={mp} L={L} nonempty={nonempty}"),
+            f"U={U} mp={mp} L={L} nonempty={nonempty}", None),
         "map_indices": (
-            lambda: map_indices(items, **m_kw),
-            lambda: map_indices_ref(items, **m_kw),
+            lambda: tuple(t[:n] for t in map_indices(w.items, count=w.count,
+                                                     **m_kw)),
+            lambda: tuple(t[:n] for t in map_indices_ref(
+                w.items, count=w.count, **m_kw)),
             _bound(n * (L + K + 2) * 4,
-                   n * 2 * _hash_ops(L) + int((idx < mp).sum()) * 28),
-            f"n={n} L={L} K={K} m={mp}"),
+                   n * 2 * _hash_ops(L) + int((live < mp).sum()) * 28),
+            f"n={n} of {slots} slots, L={L} K={K} m={mp}",
+            lambda: map_indices(w.items, **m_kw)),
         "iblt_apply": (
-            lambda: iblt_apply(items, idx, chks, side, unit, m_units, mp=mp),
-            lambda: iblt_apply_ref(items, idx, chks, side, unit, m_units,
-                                   mp=mp),
+            lambda: iblt_apply(*apply_args, mp=mp, count=w.count),
+            lambda: iblt_apply_ref(*apply_args, mp=mp, count=w.count),
             _bound(n * (L + K + 4) * 4 + U * mp * (L + 3) * 4,
                    valid * (L + 3)),
-            f"U={U} n={n} L={L} K={K} mp={mp} m_u={m_units.tolist()} "
-            f"valid slots={valid}"),
+            f"U={U} n={n} of {slots} slots, L={L} K={K} mp={mp} "
+            f"m_u={loop.m_units.tolist()} valid slots={valid}",
+            lambda: iblt_apply(*apply_args, mp=mp)),
     }
+
+
+def chunk_times(diff, reps: int = 5) -> None:
+    """Where a wave's time goes, at the start of the phase-3 decode: the
+    first wave enqueued op by op, and captured as a CUDA graph and
+    replayed, as the wave loop runs it on the card (captured into the
+    loops' shared memory pool).  Host ms: the enqueue
+    (op by op), the capture and the replay, each while the card is parked
+    in a spin; card ms: the wave run back to back (CUDA events).  Median
+    of ``reps`` fresh loops."""
+    from repro_torch.kernels._build import CountedGraph
+    times = {k: [] for k in ("enqueue", "card", "capture", "replay",
+                             "graph card")}
+
+    def parked(enqueue, host: str, card: str) -> None:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2e8))          # ~0.1 s: the enqueue fits
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        enqueue()
+        times[host].append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        times[card].append(start.elapsed_time(end))
+
+    for _ in range(reps):
+        parked(make_loop(diff)._wave, "enqueue", "card")
+        loop = make_loop(diff)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = (loop._programs.capture(loop._wave) if loop._programs
+                 else CountedGraph(loop._wave, loop.state.sums.device))
+        times["capture"].append((time.perf_counter() - t0) * 1e3)
+        parked(graph.replay, "replay", "graph card")
+        del graph, loop
+    ms = {k: sorted(v)[reps // 2] for k, v in times.items()}
+    say(f"phase 10 one wave at the phase-3 start: op by op "
+        f"{ms['enqueue']:.3f} ms of host enqueue and {ms['card']:.3f} ms on "
+        f"the card; as a CUDA graph captured in {ms['capture']:.3f} ms, "
+        f"replayed in {ms['replay']:.3f} ms of host and "
+        f"{ms['graph card']:.3f} ms on the card")
 
 
 def phase_times(diff, enc_items, wave, ckpt_wave, paths: dict,
                 path_ms: dict, errs: dict) -> list:
     """The kernels at main-path shapes.  ``paths`` maps each main path to
     its launch counts and ``path_ms`` to its kernels' summed device ms; a
-    kernel's ``launches`` and ``path_ms`` are their sums.  ``wave`` is
+    kernel's ``launches`` and ``path_ms`` are their sums.  The first wave
+    of the phase-3 decode gives each decode kernel's main row; ``wave`` is
     phase 7's largest wave, at which map_indices and iblt_apply are timed
     a second time (``wave_*`` keys of their rows); map_indices is timed a
     third time at the phase-6 encode shape (``encode_*`` keys).
     ``ckpt_wave`` is phase 8's largest wave (16-byte records, L = 4), at
     which purity_scan, map_indices and iblt_apply are timed again
-    (``ckpt_*`` keys)."""
+    (``ckpt_*`` keys).  At the first wave and phase 7's wave, A and C are
+    also timed over every slot of the wave without the live count (the
+    dropped slots at side 0): ``slots_ms`` and ``wave_slots_ms``."""
     from repro_torch.core.hashing import DEFAULT_KEY
     from repro_torch.core.mapping import kmax
     from repro_torch.kernels.map_indices import map_indices
-    from repro_torch.kernels.ops import host_symbols_to_device
-    from repro_torch.kernels.peel import (PeelState, _stage1, iblt_apply,
-                                          purity_scan)
     from repro_torch.kernels.iblt_encode import iblt_encode
-    from repro_torch.kernels.ref import (iblt_apply_ref, iblt_encode_ref,
-                                         map_indices_ref, purity_ref)
-    key = DEFAULT_KEY
+    from repro_torch.kernels.ref import iblt_encode_ref, map_indices_ref
+    key, L = DEFAULT_KEY, (NBYTES + 3) // 4
     launches = {name: sum(p.get(name, 0) for p in paths.values())
                 for name in KERNELS}
-    sums, checks, counts = host_symbols_to_device(diff, DEVICE)
-    m, L = sums.shape
-    mp = ((m + 255) // 256) * 256
-    K = kmax(mp)
-
-    def pad(x):
-        out = torch.zeros((mp, x.shape[1]), dtype=torch.int32, device=DEVICE)
-        out[:m] = x
-        return out
-
-    def empty(*shape):
-        return torch.zeros(shape, dtype=torch.int32, device=DEVICE)
-
-    state = PeelState(pad(sums), pad(checks), pad(counts.reshape(m, 1)),
-                      empty(0, L), empty(0, 2), empty(0),
-                      empty(0).to(torch.int64), np.zeros(1, np.int64),
-                      np.zeros(1, bool), 0)
-    # the first wave of the phase-3 decode: the largest map / apply inputs
-    rows, side, _, _ = _stage1(state, mp=mp, cap=mp, max_diff=mp, key=key,
-                               nbytes=NBYTES)
-    n_new = int(rows.numel())
-    items, chks = state.sums[rows], state.checks[rows]
-    # chains at mp, the prefix cut at m by the apply, as the decode does
-    idx, _ = map_indices(items, K=K, m=mp, nbytes=NBYTES, key=key)
-    valid = int(((idx >= 0) & (idx < m)).sum())
-    nonempty = int((state.counts != 0).sum())
-    one = (torch.zeros(n_new, dtype=torch.int32, device=DEVICE),
-           torch.tensor([m], dtype=torch.int32, device=DEVICE))
-
-    runs = {
-        "purity_scan": (
-            lambda: purity_scan(*state[:3], key=key, nbytes=NBYTES),
-            lambda: purity_ref(*state[:3], key=key, nbytes=NBYTES),
-            _bound(mp * (L + 3) * 4 + mp * 4, nonempty * (_hash_ops(L) + 4)),
-            f"mp={mp} L={L}"),
-        "map_indices": (
-            lambda: map_indices(items, K=K, m=mp, nbytes=NBYTES, key=key),
-            lambda: map_indices_ref(items, K=K, m=mp, nbytes=NBYTES, key=key),
-            _bound(n_new * (L + K + 2) * 4,
-                   n_new * 2 * _hash_ops(L)
-                   + int((idx < mp).sum()) * 28),
-            f"n={n_new} L={L} K={K} m={mp}"),
-        "iblt_apply": (
-            lambda: iblt_apply(items, idx, chks, side, *one, mp=mp),
-            lambda: iblt_apply_ref(items, idx, chks, side, *one, mp=mp),
-            _bound(n_new * (L + K + 4) * 4 + mp * (L + 3) * 4,
-                   valid * (L + 3)),
-            f"U=1 n={n_new} K={K} m={m} mp={mp} valid slots={valid}"),
-    }
+    runs = wave_runs({"args": first_wave(diff)})
+    chunk_times(diff)
     wave_at = {"wave": {k: v for k, v in wave_runs(wave).items()
                         if k != "purity_scan"},
                "ckpt": wave_runs(ckpt_wave)}
@@ -1165,16 +1596,17 @@ def phase_times(diff, enc_items, wave, ckpt_wave, paths: dict,
             lambda: map_indices_ref(enc_items, **e_kw),
             _bound(n_enc * (L + K_enc + 2) * 4,
                    n_enc * 2 * _hash_ops(L) + e_valid * 28),
-            f"n={n_enc} L={L} K={K_enc} m={m_enc}"),
+            f"n={n_enc} L={L} K={K_enc} m={m_enc}", None),
     }
     runs["iblt_encode"] = (
         lambda: iblt_encode(enc_items, e_idx, e_chk, m=m_enc),
         lambda: iblt_encode_ref(enc_items, e_idx, e_chk, m=m_enc),
         _bound(n_enc * (L + K_enc + 2) * 4 + m_enc * (L + 3) * 4,
                e_valid * (L + 3)),
-        f"n={n_enc} K={K_enc} m={m_enc} valid slots={e_valid}")
+        f"n={n_enc} K={K_enc} m={m_enc} valid slots={e_valid}", None)
     out = []
-    for name, (kern, plain, (bound_ms, bound_by), shape) in runs.items():
+    for name, (kern, plain, (bound_ms, bound_by), shape, slots) in \
+            runs.items():
         for g, w in zip(outputs(kern()), outputs(plain())):
             errs[name] = max(errs[name], max_abs_err(g, w))
         check(errs[name] == 0, f"{name} disagrees at main-path shapes")
@@ -1188,18 +1620,23 @@ def phase_times(diff, enc_items, wave, ckpt_wave, paths: dict,
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": None})
+        extra = ""
+        if slots is not None:
+            out[-1]["slots_ms"] = cuda_ms(slots)[0]
+            extra = (f"; over every slot without the count "
+                     f"{out[-1]['slots_ms']:.4f} ms")
         say(f"phase 10 {name} [{shape}]: {ms:.4f} ms on the card "
             f"({call_ms:.4f} ms a call from Python), plain {plain_ms:.3f} "
-            f"ms, bound {bound_ms:.4f} ms ({bound_by}), {launches[name]} "
-            f"launches on the main paths {per_path}, their device ms "
-            f"{per_path_ms}")
-        for tag, at, extra in (
+            f"ms, bound {bound_ms:.4f} ms ({bound_by}){extra}, "
+            f"{launches[name]} launches on the main paths {per_path}, their "
+            f"device ms {per_path_ms}")
+        for tag, at, table in (
                 ("wave", "phase 7's largest wave", wave_at["wave"]),
                 ("encode", "the phase-6 encode shape", encode_runs),
                 ("ckpt", "phase 8's largest wave", wave_at["ckpt"])):
-            if name not in extra:
+            if name not in table:
                 continue
-            kern, plain, (bound_ms, bound_by), shape = extra[name]
+            kern, plain, (bound_ms, bound_by), shape, slots = table[name]
             for g, w in zip(outputs(kern()), outputs(plain())):
                 errs[name] = max(errs[name], max_abs_err(g, w))
             check(errs[name] == 0, f"{name} disagrees at {at}")
@@ -1208,9 +1645,15 @@ def phase_times(diff, enc_items, wave, ckpt_wave, paths: dict,
                             f"{tag}_plain_ms": plain_ms,
                             f"{tag}_bound_ms": bound_ms,
                             f"{tag}_shape": shape})
+            extra = ""
+            if slots is not None and tag == "wave":
+                out[-1]["wave_slots_ms"] = cuda_ms(slots)[0]
+                extra = (f"; over every slot without the count "
+                         f"{out[-1]['wave_slots_ms']:.4f} ms")
             say(f"phase 10 {name} at {at} [{shape}]: {ms:.4f} ms on the "
                 f"card ({call_ms:.4f} ms a call from Python), plain "
-                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+                f"{extra}")
     return out
 
 
@@ -1248,6 +1691,8 @@ def main() -> int:
         args.seed, decode + (iblt_encode,))
     phase_reconcile_sets(args.seed)
     rows = phase_times(diff, enc_items, wave, ckpt_wave, paths, path_ms, errs)
+    del wave, ckpt_wave
+    phase_serve(args.seed)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -97,8 +97,6 @@ def main() -> int:
     from repro_torch.core.hashing import DEFAULT_KEY, map_key
     from repro_torch.core.mapping import kmax
     from repro_torch.kernels import map_indices as mi
-    from repro_torch.kernels.ops import host_symbols_to_device
-    from repro_torch.kernels.peel import PeelState, _stage1
     lib = build_library()
     key, mk = DEFAULT_KEY, map_key(DEFAULT_KEY)
     sms, optin = mi._card(torch.cuda.current_device())
@@ -215,22 +213,8 @@ def main() -> int:
     recs = cs.random_records(rng, d)
     diff = encode(recs[: d // 2], cs.NBYTES, m).subtract(
         encode(recs[d // 2:], cs.NBYTES, m))
-    sums, checks, counts = host_symbols_to_device(diff, "cuda")
-    mp = ((m + 255) // 256) * 256
-
-    def pad(x):
-        out = torch.zeros((mp, x.shape[1]), dtype=torch.int32, device="cuda")
-        out[:m] = x
-        return out
-
-    def empty(*dims):
-        return torch.zeros(dims, dtype=torch.int32, device="cuda")
-    state = PeelState(pad(sums), pad(checks), pad(counts.reshape(m, 1)),
-                      empty(0, L), empty(0, 2), empty(0),
-                      empty(0).to(torch.int64), np.zeros(1, np.int64),
-                      np.zeros(1, bool), 0)
-    rows, _, _, _ = _stage1(state, mp=mp, cap=mp, max_diff=mp, key=key,
-                            nbytes=cs.NBYTES)
+    loop, state, wave = cs.first_wave(diff)
+    mp, rows = loop.mp, wave.rows[:int(wave.count)]
     shape("first wave", state.sums[rows], kmax(mp), mp)
 
     # -- a sharded-serving wave and one encode of phase 6 --------------------

@@ -541,7 +541,7 @@ extern "C" int sv_variant(int variant, const void* items, const void* idxs,
     a.sums = (uint32_t*)sums;
     a.checks = (uint32_t*)checks;
     a.counts = (int32_t*)counts;
-    auto kernel = variant == 3 ? scatter::scatter_kernel
+    auto kernel = variant == 3 ? scatter::scatter_kernel<scatter::kApply>
                   : variant == 5 ? tuned_kernel<1, false>
                   : variant == 6 ? tuned_kernel<2, false>
                   : variant == 7 ? tuned_kernel<0, true>

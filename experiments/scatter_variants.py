@@ -131,8 +131,7 @@ def main() -> int:
     from repro_torch.core.mapping import kmax
     from repro_torch.kernels.iblt_encode import iblt_encode
     from repro_torch.kernels.map_indices import map_indices
-    from repro_torch.kernels.ops import host_symbols_to_device
-    from repro_torch.kernels.peel import PeelState, _stage1, iblt_apply
+    from repro_torch.kernels.peel import iblt_apply
     from repro_torch.kernels.ref import iblt_apply_ref, iblt_encode_ref
     lib = build_library()
     info = (ctypes.c_int * 3)()
@@ -161,22 +160,9 @@ def main() -> int:
     recs = cs.random_records(rng, d)
     diff = encode(recs[: d // 2], cs.NBYTES, m).subtract(
         encode(recs[d // 2:], cs.NBYTES, m))
-    sums, checks, counts = host_symbols_to_device(diff, "cuda")
-    mp = ((m + 255) // 256) * 256
-
-    def pad(x):
-        out = torch.zeros((mp, x.shape[1]), dtype=torch.int32, device="cuda")
-        out[:m] = x
-        return out
-
-    def empty(*shape):
-        return torch.zeros(shape, dtype=torch.int32, device="cuda")
-    state = PeelState(pad(sums), pad(checks), pad(counts.reshape(m, 1)),
-                      empty(0, L), empty(0, 2), empty(0),
-                      empty(0).to(torch.int64), np.zeros(1, np.int64),
-                      np.zeros(1, bool), 0)
-    rows, side, _, _ = _stage1(state, mp=mp, cap=mp, max_diff=mp,
-                               key=DEFAULT_KEY, nbytes=cs.NBYTES)
+    loop, state, wave = cs.first_wave(diff)
+    mp, n_new = loop.mp, int(wave.count)
+    rows, side = wave.rows[:n_new], wave.sides[:n_new]
     items, chks = state.sums[rows], state.checks[rows]
     idx, _ = map_indices(items, K=kmax(mp), m=mp, nbytes=cs.NBYTES,
                          key=DEFAULT_KEY)

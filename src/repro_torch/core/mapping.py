@@ -77,6 +77,19 @@ def _jump_np(idx: np.ndarray, state: np.ndarray):
     return idx + g, state
 
 
+def advance_np(idx, state, limit):
+    """Advance chains until every idx >= limit.  Yields (active_sel, idx)
+    batches for the encoder.  idx/state are modified in place."""
+    while True:
+        active = np.flatnonzero(idx < limit)
+        if active.size == 0:
+            return
+        yield active, idx[active]
+        nidx, nstate = _jump_np(idx[active], state[active])
+        idx[active] = nidx
+        state[active] = nstate
+
+
 def walk_chains(nxt, state, hi, visit=None):
     """Advance every chain position in place until ``nxt >= hi``.
 
@@ -97,6 +110,17 @@ def walk_chains(nxt, state, hi, visit=None):
         nxt[live] = nn
         state[live] = ns
     return np.concatenate(touched) if touched else np.zeros(0, np.int64)
+
+
+def item_indices_np(seed: int, m: int) -> np.ndarray:
+    """All mapped indices < m for one item (exact chain).  int64 array."""
+    out = []
+    idx = np.zeros(1, dtype=np.int64)
+    state = np.array([seed], dtype=np.uint64)
+    while idx[0] < m:
+        out.append(int(idx[0]))
+        idx, state = _jump_np(idx, state)
+    return np.asarray(out, dtype=np.int64)
 
 
 def indices_matrix_np(seeds: np.ndarray, m: int, K: int | None = None) -> np.ndarray:

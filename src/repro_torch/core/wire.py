@@ -14,8 +14,13 @@ is ``docs/WIRE_FORMAT.md``.
 :func:`encode_shard_frames` / :func:`decode_shard_frames` compose frames
 into the sharded merged payload ("RSH1"): a magic + partition header, then
 one standard frame per shard behind a shard-id'd extension header — what
-:class:`repro_torch.protocol.ShardedSession` speaks.  The reference's
-legacy stream codec is not ported.
+:class:`repro_torch.protocol.ShardedSession` speaks.
+
+:func:`encode_stream` / :func:`decode_stream` are the legacy codec: the
+same body behind a 16-byte header ``(m, nbytes, n_items)``, ``start``
+supplied by the caller.  :func:`encode_frames_loop` /
+:func:`decode_frames_loop` are per-symbol loop codecs, byte-identical with
+the vectorized frame codec, kept as its differential oracle.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from .mapping import rho
 from .symbols import CodedSymbols
 
 _FRAME_HDR = struct.Struct("<IIQQ")   # m, nbytes, n_items, start
+_STREAM_HDR = struct.Struct("<IIQ")   # m, nbytes, n_items (legacy)
 _MAX_VARINT = 10                      # ⌈64/7⌉ bytes bound a u64 varint
 
 
@@ -155,6 +161,89 @@ def decode_frames(data: bytes) -> tuple[CodedSymbols, int, int]:
     m, nbytes, n_items, start = _FRAME_HDR.unpack_from(data, 0)
     exp = expected_counts(n_items, start, start + m)
     sym, _ = _unpack_body(memoryview(data), _FRAME_HDR.size, m, nbytes, exp)
+    return sym, n_items, start
+
+
+# ---------------------------------------------------------------------------
+# Legacy stream codec (16-byte header, caller-supplied start).
+# ---------------------------------------------------------------------------
+def encode_stream(sym: CodedSymbols, start: int = 0,
+                  n_items: int | None = None) -> bytes:
+    """Serialize symbols [start, start+m) of a stream whose set has
+    ``n_items`` elements (defaults to |count of symbol 0| when start==0)."""
+    n_items = _infer_n_items(sym, start, n_items)
+    exp = expected_counts(n_items, start, start + sym.m)
+    return _STREAM_HDR.pack(sym.m, sym.nbytes, n_items) + _pack_body(sym, exp)
+
+
+def decode_stream(data: bytes, start: int = 0) -> tuple[CodedSymbols, int]:
+    """Inverse of :func:`encode_stream`.  Returns (symbols, n_items)."""
+    m, nbytes, n_items = _STREAM_HDR.unpack_from(data, 0)
+    exp = expected_counts(n_items, start, start + m)
+    sym, _ = _unpack_body(memoryview(data), _STREAM_HDR.size, m, nbytes, exp)
+    return sym, n_items
+
+
+# ---------------------------------------------------------------------------
+# Per-symbol loop codecs (byte-identical output): the differential oracle.
+# ---------------------------------------------------------------------------
+def _varint_encode_one(u: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = u & 0x7F
+        u >>= 7
+        if u:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _varint_decode_one(buf, pos: int):
+    shift = 0
+    val = 0
+    while True:
+        b = buf[pos]
+        pos += 1
+        val |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return val, pos
+        shift += 7
+
+
+def encode_frames_loop(sym: CodedSymbols, start: int = 0,
+                       n_items: int | None = None) -> bytes:
+    """Per-symbol Python-loop encoder; output == :func:`encode_frames`."""
+    n_items = _infer_n_items(sym, start, n_items)
+    exp = expected_counts(n_items, start, start + sym.m)
+    deltas = _zigzag(sym.counts - exp)
+    raw = np.ascontiguousarray(sym.sums).view(np.uint8).reshape(sym.m, -1)
+    sums, checks, varints = bytearray(), bytearray(), bytearray()
+    for i in range(sym.m):
+        sums += raw[i, : sym.nbytes].tobytes()
+        checks += struct.pack("<Q", int(sym.checks[i]))
+        varints += _varint_encode_one(int(deltas[i]))
+    return _FRAME_HDR.pack(sym.m, sym.nbytes, n_items, start) + \
+        bytes(sums) + bytes(checks) + bytes(varints)
+
+
+def decode_frames_loop(data: bytes) -> tuple[CodedSymbols, int, int]:
+    """Per-symbol Python-loop decoder; inverse of :func:`encode_frames`."""
+    m, nbytes, n_items, start = _FRAME_HDR.unpack_from(data, 0)
+    exp = expected_counts(n_items, start, start + m)
+    sym = CodedSymbols.zeros(m, nbytes)
+    buf = memoryview(data)
+    pos = _FRAME_HDR.size
+    for i in range(m):
+        row = sym.sums[i].view(np.uint8)
+        row[:nbytes] = np.frombuffer(buf[pos:pos + nbytes], np.uint8)
+        pos += nbytes
+    for i in range(m):
+        sym.checks[i] = struct.unpack_from("<Q", data, pos)[0]
+        pos += 8
+    for i in range(m):
+        delta, pos = _varint_decode_one(buf, pos)
+        sym.counts[i] = _unzigzag(np.array([delta], np.uint64))[0] + exp[i]
     return sym, n_items, start
 
 

@@ -14,6 +14,10 @@
 // unit[i], only its slots with 0 <= j < m_units[unit[i]] count, and symbol j
 // goes to row unit[i] * stride + j.
 //
+// `count`, where given, is the number of live items, on the card: a wave
+// of the decode launches over its fixed slots and compacts the items it
+// recovers to the front, so the host never reads how many there are.
+//
 // The outputs are a delta, not an in-place update: the wrapper passes
 // zeroed sums / checks / counts, and the caller XORs the first two into its
 // residual and subtracts the counts.
@@ -33,7 +37,8 @@ extern "C" int iblt_apply_launch(const void* items, const void* idxs,
                                  long long n, int K, int L,
                                  const void* unit, const void* m_units,
                                  long long stride, void* sums, void* checks,
-                                 void* counts, void* stream) {
+                                 void* counts, const void* count,
+                                 void* stream) {
   scatter::Args a{};
   a.items = (const uint32_t*)items;
   a.idxs = (const int32_t*)idxs;
@@ -49,5 +54,6 @@ extern "C" int iblt_apply_launch(const void* items, const void* idxs,
   a.sums = (uint32_t*)sums;
   a.checks = (uint32_t*)checks;
   a.counts = (int32_t*)counts;
-  return scatter::launch(a, stride, (cudaStream_t)stream);
+  a.count = (const long long*)count;
+  return scatter::launch<scatter::kApply>(a, stride, (cudaStream_t)stream);
 }

@@ -39,5 +39,5 @@ extern "C" int iblt_encode_launch(const void* items, const void* idxs,
   a.sums = (uint32_t*)sums;
   a.checks = (uint32_t*)checks;
   a.counts = (int32_t*)counts;
-  return scatter::launch(a, m, (cudaStream_t)stream);
+  return scatter::launch<scatter::kEncode>(a, m, (cudaStream_t)stream);
 }

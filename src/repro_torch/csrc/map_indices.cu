@@ -46,7 +46,7 @@ extern "C" int map_indices_launch(const void* items, long long n, int L,
                                   uint64_t k0, uint64_t k1, uint64_t mk0,
                                   uint64_t mk1, void* idx_out, void* chk_out,
                                   int bn, int lanes, long long smem,
-                                  void* stream) {
+                                  const void* count, void* stream) {
   if (n <= 0) return 0;
   mapidx::Args a{};
   a.items = (const uint32_t*)items;
@@ -62,5 +62,6 @@ extern "C" int map_indices_launch(const void* items, long long n, int L,
   a.idx = (int32_t*)idx_out;
   a.chk = (uint32_t*)chk_out;
   a.bn = bn;
+  a.count = (const long long*)count;
   return mapidx::launch(a, lanes, (size_t)smem, (cudaStream_t)stream);
 }

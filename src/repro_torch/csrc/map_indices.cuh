@@ -13,6 +13,9 @@
 //      no branch; the chain is left once every kDepth jumps;
 //   3. the block writes its tile as one contiguous span of bn * K words,
 //      16 bytes a store.
+// With `count` set, the kernel reads the number of live items from device
+// memory: a block past it returns at once, and rows past it are not
+// written (the decode's waves launch over a fixed number of slots).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,6 +35,7 @@ struct Args {
   int32_t* idx;           // (n, K) indices, pad = m
   uint32_t* chk;          // (n, 2) (hi, lo) checksums
   int bn;                 // items a block; a block has bn * G threads
+  const long long* count; // live items, or null: all n
 };
 
 __device__ __forceinline__ uint64_t xs64(uint64_t s) {
@@ -81,7 +85,9 @@ __global__ void __launch_bounds__(128) map_kernel(Args a) {
   const int lane = threadIdx.x % G;
   const int r = threadIdx.x / G;
   const long long i0 = (long long)blockIdx.x * a.bn;
-  const int nb = (int)(a.n - i0 < a.bn ? a.n - i0 : a.bn);
+  const long long n = a.count && *a.count < a.n ? *a.count : a.n;
+  if (i0 >= n) return;  // the whole block: no barrier is left waiting
+  const int nb = (int)(n - i0 < a.bn ? n - i0 : a.bn);
   const bool live = r < nb;
   const int K = a.K;
   const long long g0 = i0 * K;

@@ -6,7 +6,8 @@
 // of `sums`, its two checksum words into `checks`, and add w_i to `counts`.
 // iblt_encode is the case w = +1, one unit, limit m.  iblt_apply passes the
 // sides as weights, each item's unit (base = unit * stride) and each unit's
-// prefix m_units[unit] as its limit.  XOR and integer addition do not depend
+// prefix m_units[unit] as its limit, and may pass `count`, the number of
+// live items read from device memory: the items past it are skipped.  XOR and integer addition do not depend
 // on order, so the result is bit-identical whatever order the atomics land
 // in.  The outputs must be zeroed by the caller.
 //
@@ -72,15 +73,23 @@ struct Args {
   uint32_t* sums;          // (rows, L)
   uint32_t* checks;        // (rows, 2)
   int32_t* counts;         // (rows,)
+  const long long* count;  // live items (a prefix), read on the card, or
+                           // null: all n
 };
 
+// The including library passes its tag, so a trace of the card tells
+// iblt_apply's launches (scatter_kernel<0>) from iblt_encode's (<1>).
+constexpr int kApply = 0, kEncode = 1;
+
+template <int kLib>
 __global__ void __launch_bounds__(kThreads, 1) scatter_kernel(const Args a) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int L = a.L, V = L + 2;
   uint32_t* tab = smem;                                 // (H, L + 2)
   int32_t* cnt = (int32_t*)(smem + (size_t)a.hot * V);  // (H,)
-  const long long lo = a.n * blockIdx.x / gridDim.x;
-  const long long hi = a.n * (blockIdx.x + 1) / gridDim.x;
+  const long long n = a.count && *a.count < a.n ? *a.count : a.n;
+  const long long lo = n * blockIdx.x / gridDim.x;
+  const long long hi = n * (blockIdx.x + 1) / gridDim.x;
   if (lo >= hi) return;
   const int home = a.unit ? a.unit[lo] : 0;
   const long long home_lim = a.limits ? a.limits[home] : a.m;
@@ -143,6 +152,7 @@ __global__ void __launch_bounds__(kThreads, 1) scatter_kernel(const Args a) {
 
 // Size the grid and H from the card, launch on `stream`, and return the
 // launch's cudaError_t.  `max_rows` bounds H: the rows one unit has.
+template <int kLib>
 inline int launch(Args a, long long max_rows, cudaStream_t stream) {
   if (a.n <= 0 || a.K <= 0) return 0;
   int device = 0, sms = 0, optin = 0;
@@ -161,9 +171,10 @@ inline int launch(Args a, long long max_rows, cudaStream_t stream) {
   a.hot = (int)hot;
   const size_t smem = (size_t)hot * (a.L + 3) * 4;
   const cudaError_t set = cudaFuncSetAttribute(
-      scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      scatter_kernel<kLib>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (set != cudaSuccess) return (int)set;
-  scatter_kernel<<<(unsigned)grid, kThreads, smem, stream>>>(a);
+  scatter_kernel<kLib><<<(unsigned)grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

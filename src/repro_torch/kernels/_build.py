@@ -40,12 +40,12 @@ _U64 = ctypes.c_uint64
 SIGNATURES = {
     "map_indices": ("map_indices_launch",
                     [_P, _LL, _I, _I, _I, _LL, _U64, _U64, _U64, _U64,
-                     _P, _P, _I, _I, _LL, _P]),
+                     _P, _P, _I, _I, _LL, _P, _P]),
     "purity_scan": ("purity_scan_launch",
                     [_P, _P, _P, _LL, _I, _I, _U64, _U64, _P, _P]),
     "iblt_apply": ("iblt_apply_launch",
                    [_P, _P, _P, _P, _LL, _I, _I, _P, _P, _LL, _P, _P, _P,
-                    _P]),
+                    _P, _P]),
     "iblt_encode": ("iblt_encode_launch",
                     [_P, _P, _P, _LL, _I, _I, _LL, _P, _P, _P, _P]),
 }
@@ -145,3 +145,61 @@ def device_ptr(t, name: str, dtype, ndim: int) -> int:
 def stream_of(t) -> int:
     """The handle of torch's current CUDA stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# The wrappers whose launches a CUDA graph being captured by
+# :class:`CountedGraph` records, in order; None while none is captured.
+_captured: list | None = None
+_capture_streams: dict = {}
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel in ``wrapper.launches``.
+
+    A launch made while :class:`CountedGraph` captures is recorded into the
+    graph and runs only when the graph is replayed, so it is noted there
+    and counted at each replay instead.
+    """
+    if _captured is None:
+        wrapper.launches += 1
+    else:
+        _captured.append(wrapper)
+
+
+class CountedGraph:
+    """``fn()`` captured once as a CUDA graph on ``device``.
+
+    :meth:`replay` launches the whole graph on the current stream with one
+    call from the host, and adds each kernel launch the graph holds to its
+    wrapper's ``.launches``.  ``out`` is what ``fn`` returned: tensors in
+    the graph's own memory, rewritten by every replay.  The capture runs on
+    a side stream, without ``torch.cuda.graph``'s synchronise, garbage
+    collection and cache flush, so it waits for nothing on the card.
+    ``pool`` is a memory pool shared with other graphs
+    (``torch.cuda.graph_pool_handle()``), or None for a pool of its own.
+    """
+
+    def __init__(self, fn, device: torch.device, pool=None):
+        global _captured
+        side = _capture_streams.get(device.index)
+        if side is None:
+            side = _capture_streams[device.index] = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        graph = torch.cuda.CUDAGraph()
+        _captured = []
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=pool)
+                try:
+                    self.out = fn()
+                finally:
+                    graph.capture_end()
+            self.kernels = tuple(_captured)
+        finally:
+            _captured = None
+        self.graph = graph
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for wrapper in self.kernels:
+            wrapper.launches += 1

@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from ._build import check_launch, device_ptr, launcher, stream_of
+from ._build import (check_launch, count_launch, device_ptr, launcher,
+                     stream_of)
 from .ref import iblt_encode_ref
 
 __all__ = ["iblt_encode", "iblt_encode_ref"]
@@ -51,7 +52,7 @@ def iblt_encode(items: torch.Tensor, idxs: torch.Tensor, chks: torch.Tensor,
             p_items, p_idxs, p_chks, n, K, L, m, sums.data_ptr(),
             checks.data_ptr(), counts.data_ptr(), stream_of(items))
     check_launch("iblt_encode", rc)
-    iblt_encode.launches += 1
+    count_launch(iblt_encode)
     return sums, checks, counts
 
 

@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.core.hashing import map_key
 
-from ._build import check_launch, device_ptr, launcher, stream_of
+from ._build import (check_launch, count_launch, device_ptr, launcher,
+                     stream_of)
 from .ref import map_indices_ref
 
 __all__ = ["launch_shape", "map_indices", "map_indices_ref"]
@@ -64,19 +65,26 @@ def _card(index: int) -> tuple[int, int]:
     return props.multi_processor_count, props.shared_memory_per_block_optin
 
 
-def map_indices(items: torch.Tensor, *, K: int, m: int, nbytes: int, key):
+def map_indices(items: torch.Tensor, *, K: int, m: int, nbytes: int, key,
+                count: torch.Tensor | None = None):
     """items (n, L) int32 -> (idx (n, K) int32, pad = m; chk (n, 2) int32).
 
+    ``count``, a (1,) int64 tensor beside the items, limits the work to
+    the first ``count`` items without a read on the host: the kernel reads
+    it on the card and leaves the rows past it unwritten.
     ``map_indices.launches`` counts kernel launches.
     """
     if items.device.type == "cpu":
-        return map_indices_ref(items, K=K, m=m, nbytes=nbytes, key=key)
+        return map_indices_ref(items, K=K, m=m, nbytes=nbytes, key=key,
+                               count=count)
     n, L = items.shape
     if not 0 <= m < 2 ** 31:
         raise ValueError(f"m={m} outside the int32 index range")
     idx = torch.empty((n, K), dtype=torch.int32, device=items.device)
     chk = torch.empty((n, 2), dtype=torch.int32, device=items.device)
     p_items = device_ptr(items, "items", torch.int32, 2)
+    p_count = None if count is None else device_ptr(count, "count",
+                                                    torch.int64, 1)
     if n == 0:
         return idx, chk
     sms, optin = _card(items.device.index)
@@ -85,10 +93,10 @@ def map_indices(items: torch.Tensor, *, K: int, m: int, nbytes: int, key):
     with torch.cuda.device(items.device):
         rc = launcher("map_indices")(
             p_items, n, L, nbytes, K, m, key[0], key[1], mk[0], mk[1],
-            idx.data_ptr(), chk.data_ptr(), bn, lanes, smem,
+            idx.data_ptr(), chk.data_ptr(), bn, lanes, smem, p_count,
             stream_of(items))
     check_launch("map_indices", rc)
-    map_indices.launches += 1
+    count_launch(map_indices)
     return idx, chk
 
 

@@ -29,15 +29,16 @@ from repro_torch.core.symbols import CodedSymbols
 
 from .iblt_encode import iblt_encode
 from .map_indices import map_indices
-from .peel import peel_waves_batched
+from .peel import WaveLoop, upload
 
 
 def _as_i32(x, device: torch.device) -> torch.Tensor:
-    """numpy (32-bit words or counts) or torch -> int32 tensor on device."""
+    """numpy (32-bit words or counts) or torch -> int32 tensor on device;
+    numpy arrays reach the card without a host wait."""
     if isinstance(x, np.ndarray):
         if x.dtype == np.uint32:
             x = x.view(np.int32)
-        x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+        x = upload(np.ascontiguousarray(x, dtype=np.int32), device)
     return x.to(device=device, dtype=torch.int32).contiguous()
 
 
@@ -109,26 +110,27 @@ def _empty_result(L: int, nbytes: int) -> DeviceDecodeResult:
         np.zeros(0, np.int8), True, False, 0, CodedSymbols.zeros(0, nbytes))
 
 
-def _results(state, success, ms, mp: int, nbytes: int) -> list:
-    """One :class:`DeviceDecodeResult` per prefix length in ``ms`` (units
-    past ``len(ms)`` are padding and never read back)."""
-    items = _as_u32_np(state.rec_items)
-    rchk = _as_u32_np(state.rec_checks)
+def _results(out: dict, ms, mp: int, nbytes: int) -> list:
+    """One :class:`DeviceDecodeResult` per prefix length in ``ms`` from a
+    :meth:`WaveLoop.finish` outcome (units past ``len(ms)`` are padding
+    and never read)."""
+    items = out["rec_items"].view(np.uint32)
+    rchk = out["rec_checks"].view(np.uint32)
     hashes = (rchk[:, 0].astype(np.uint64) << np.uint64(32)) | \
         rchk[:, 1].astype(np.uint64)
-    sides = state.rec_sides.cpu().numpy().astype(np.int8)
-    units = state.rec_units.cpu().numpy()
-    out = []
+    sides = out["rec_sides"].astype(np.int8)
+    starts = np.concatenate([[0], np.cumsum(out["n_rec"])])
+    res = []
     for u, m in enumerate(ms):
-        mine = units == u        # recovery order within a unit is kept
+        mine = slice(starts[u], starts[u + 1])     # in recovery order
         rows = slice(u * mp, u * mp + m)
-        residual = device_symbols_to_host(state.sums[rows],
-                                          state.checks[rows],
-                                          state.counts[rows, 0], nbytes)
-        out.append(DeviceDecodeResult(
-            items[mine], hashes[mine], sides[mine], bool(success[u]),
-            bool(state.overflow[u]), state.rounds, residual))
-    return out
+        residual = device_symbols_to_host(out["sums"][rows],
+                                          out["checks"][rows],
+                                          out["counts"][rows, 0], nbytes)
+        res.append(DeviceDecodeResult(
+            items[mine], hashes[mine], sides[mine], bool(out["success"][u]),
+            bool(out["overflow"][u]), int(out["rounds"]), residual))
+    return res
 
 
 def _tile(m: int, block_m: int) -> int:
@@ -167,54 +169,88 @@ def decode_device(sums, checks, counts, *, nbytes: int, key=DEFAULT_KEY,
         out[:m] = x
         return out
 
-    state, success = peel_waves_batched(
+    loop = WaveLoop(
         pad(sums), pad(_as_i32(checks, device)),
         pad(_as_i32(counts, device).reshape(m, 1)), m=[m], nbytes=nbytes,
         key=key, max_diff=D, K=K, max_rounds=max_rounds, block_n=block_n)
-    return _results(state, success, [m], mp, nbytes)[0]
+    return PendingBatchedDecode(loop, [m], nbytes).wait()[0]
 
 
 class PendingBatchedDecode:
     """A :func:`decode_device_batched_start` dispatch, before its results
     are read back to the host.
 
-    ``ready()`` is non-blocking: on the card it queries a CUDA event
-    recorded after the last wave's work; on the CPU the work is done when
-    the dispatch returns, as for the reference on the CPU.  ``wait()``
+    The wave loop (:class:`~repro_torch.kernels.peel.WaveLoop`) keeps its
+    state and its stop test on the device and enqueues each wave as one
+    replay of a CUDA graph.  The dispatch enqueues its first
+    ``WAVES_PER_CHUNK`` waves and records a CUDA event; nothing is read
+    back, so the dispatch returns while the card runs them.  ``ready()``
+    is non-blocking: while the event has not fired it returns False; once
+    it has, it reads the stop flag, and if the loop goes on it enqueues as
+    many waves again as it has enqueued so far (the caller goes on with
+    other work, so waves past the loop's end cost only the card's idle
+    time) and returns False.  It returns True once the flag says done.
+    ``wait()`` drives the loop to its end a chunk at a time and
     materializes one :class:`DeviceDecodeResult` per unit, in input order.
+    ``host_reads`` counts the dispatch's waits for the card: one per flag
+    read, and one for the results, so at most
+    ceil(waves / WAVES_PER_CHUNK) + 1.
 
-    On the card the dispatch still completes synchronously today: the wave
-    loop reads each wave's per-unit counts back to the host, so the event
-    has fired by the time :func:`decode_device_batched_start` returns and
-    ``ready()`` is True at once.  A wave loop without those reads is in
-    the ROADMAP queue.
+    On the CPU the same loop runs on the kernels' plain versions; nothing
+    runs there while the host does other work, so the dispatch drives the
+    loop to its end and ``ready()`` is True at once, as for the reference
+    on the CPU.
     """
 
-    __slots__ = ("_state", "_success", "_ms", "_mp", "_nbytes", "_event",
-                 "_results")
+    __slots__ = ("_loop", "_ms", "_nbytes", "_event", "_results")
 
-    def __init__(self, state, success, ms, mp: int, nbytes: int, event=None,
-                 results=None):
-        self._state = state
-        self._success = success
+    def __init__(self, loop, ms, nbytes: int, results=None):
+        self._loop = loop
         self._ms = ms
-        self._mp = mp
         self._nbytes = nbytes
-        self._event = event
+        self._event = None
         self._results = results
+        if loop is None:
+            return
+        if loop.state.sums.device.type == "cuda":
+            self._enqueue()
+        else:
+            loop.run()
+
+    def _enqueue(self, waves: int | None = None) -> None:
+        """Enqueue the loop's next ``waves`` waves (default a chunk) on the
+        card and an event after them."""
+        self._loop.step(waves)
+        self._event = torch.cuda.Event()
+        self._event.record(torch.cuda.current_stream(
+            self._loop.state.sums.device))
+
+    @property
+    def host_reads(self) -> int:
+        return self._loop.reads if self._loop is not None else 0
 
     def ready(self) -> bool:
         """True once the results can be read without stalling."""
-        if self._results is not None or self._event is None:
+        if self._results is not None or self._loop.done:
             return True
-        return self._event.query()
+        if self._event is not None and not self._event.query():
+            return False
+        if self._loop.running():
+            # the caller goes on with other work: keep the card busy as
+            # long again as the decode has run so far
+            self._enqueue(max(self._loop.enqueued, 1))
+            return False
+        return True
 
     def wait(self) -> list[DeviceDecodeResult]:
         """Materialize (blocking) — one result per input unit, in order."""
         if self._results is None:
-            self._results = _results(self._state, self._success, self._ms,
-                                     self._mp, self._nbytes)
-            self._state = self._success = self._event = None
+            loop = self._loop
+            while loop.running():
+                self._enqueue()
+            self._results = _results(loop.finish(), self._ms, loop.mp,
+                                     self._nbytes)
+            self._event = loop.state = None
         return self._results
 
 
@@ -247,7 +283,7 @@ def decode_device_batched_start(units, *, nbytes: int, key=DEFAULT_KEY,
     ms = [sym.m for sym in units]
     if U == 0 or max(ms) == 0:
         L = units[0].L if U else 0
-        return PendingBatchedDecode(None, None, ms, 0, nbytes, results=[
+        return PendingBatchedDecode(None, ms, nbytes, results=[
             _empty_result(L, nbytes) for _ in units])
     L = units[0].L
     if any(sym.L != L or sym.nbytes != units[0].nbytes for sym in units):
@@ -265,17 +301,13 @@ def decode_device_batched_start(units, *, nbytes: int, key=DEFAULT_KEY,
         checks[u, :sym.m, 1] = (sym.checks &
                                 np.uint64(0xFFFFFFFF)).astype(np.uint32)
         counts[u, :sym.m, 0] = sym.counts
-    state, success = peel_waves_batched(
+    loop = WaveLoop(
         _as_i32(sums.reshape(Up * mp, L), device),
         _as_i32(checks.reshape(Up * mp, 2), device),
         _as_i32(counts.reshape(Up * mp, 1), device),
         m=ms + [0] * (Up - U), nbytes=nbytes, key=key, max_diff=D, K=K,
         max_rounds=max_rounds)
-    event = None
-    if device.type == "cuda":
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(device))
-    return PendingBatchedDecode(state, success, ms, mp, nbytes, event)
+    return PendingBatchedDecode(loop, ms, nbytes)
 
 
 def decode_device_batched(units, *, nbytes: int, key=DEFAULT_KEY,

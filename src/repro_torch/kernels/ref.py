@@ -19,13 +19,27 @@ from repro_torch.core.mapping import indices_matrix_t
 from .common import checksum_and_seed, checksum_pair
 
 
+def _live(count, n: int) -> int:
+    """The live prefix of n items: all of them, or the (1,) ``count``."""
+    return n if count is None else max(0, min(n, int(count.reshape(-1)[0])))
+
+
 def map_indices_ref(items: torch.Tensor, *, K: int, m: int, nbytes: int,
-                    key):
+                    key, count=None):
     """items (n, L) int32 -> (idx (n, K) int32, pad = m; chk (n, 2) int32
-    (hi, lo))."""
-    chk, seed = checksum_and_seed(items, key, nbytes)
-    idx = indices_matrix_t(seed, m, K)
-    return idx, torch.stack(split_u64(chk), dim=1)
+    (hi, lo)).  With ``count`` ((1,) int64) only the first ``count`` items
+    are mapped; the kernel leaves the rows past it unwritten, here they
+    hold pads and zero checksums."""
+    n = _live(count, items.shape[0])
+    idx = torch.full((items.shape[0], K), m, dtype=torch.int32,
+                     device=items.device)
+    cks = torch.zeros((items.shape[0], 2), dtype=torch.int32,
+                      device=items.device)
+    if n:
+        chk, seed = checksum_and_seed(items[:n], key, nbytes)
+        idx[:n] = indices_matrix_t(seed, m, K)
+        cks[:n] = torch.stack(split_u64(chk), dim=1)
+    return idx, cks
 
 
 def purity_ref(sums: torch.Tensor, checks: torch.Tensor, counts: torch.Tensor,
@@ -73,7 +87,7 @@ def _scatter(items, idxs, chks, weights, limit, base, *, rows: int):
 
 def iblt_apply_ref(items: torch.Tensor, idxs: torch.Tensor, chks: torch.Tensor,
                    sides: torch.Tensor, unit: torch.Tensor,
-                   m_units: torch.Tensor, *, mp: int):
+                   m_units: torch.Tensor, *, mp: int, count=None):
     """Signed coded-symbol delta of ``items`` over their mapped chains, for
     U decode units laid end to end (a plain decode is U = 1).
 
@@ -82,11 +96,18 @@ def iblt_apply_ref(items: torch.Tensor, idxs: torch.Tensor, chks: torch.Tensor,
     checks (U·mp, 2), counts (U·mp, 1)), all int32.  Item ``i`` scatters
     into block ``unit[i]`` of ``mp`` rows, where ``0 <= idx <
     m_units[unit[i]]`` and its side is nonzero.  The caller XORs sums and
-    checks into its residual and subtracts the counts.
+    checks into its residual and subtracts the counts.  With ``count``
+    ((1,) int64) only the first ``count`` items take part.
     """
-    u = unit.long()
-    return _scatter(items, idxs, chks, sides.reshape(-1), m_units.long()[u],
-                    u * mp, rows=mp * m_units.numel())
+    n = _live(count, items.shape[0])
+    if n == 0:
+        rows, L = mp * m_units.numel(), items.shape[1]
+        return (torch.zeros((rows, L), dtype=torch.int32, device=items.device),
+                torch.zeros((rows, 2), dtype=torch.int32, device=items.device),
+                torch.zeros((rows, 1), dtype=torch.int32, device=items.device))
+    u = unit[:n].long()
+    return _scatter(items[:n], idxs[:n], chks[:n], sides.reshape(-1)[:n],
+                    m_units.long()[u], u * mp, rows=mp * m_units.numel())
 
 
 def iblt_encode_ref(items: torch.Tensor, idxs: torch.Tensor,

@@ -23,9 +23,12 @@ as an event loop with an explicit **plan/execute split**:
   (:meth:`repro_torch.core.stream.StreamDecoder.merge_device_result` is
   tail-aware), and ``decoded_at`` is pinned to the prefix length the
   successful decode actually covered, so pipelining never inflates the
-  reported overhead.  (The wave loop reads each wave's item counts on the
-  host, so today the card's decode finishes inside the dispatch and the
-  overlap it buys is small; ``PERF.md`` records the measured share.)
+  reported overhead.  The wave loop keeps its stop test on the card and
+  enqueues a wave as one CUDA graph replay, and the dispatch returns
+  without reading anything back, so the waves it enqueued run while the
+  host ingests; each poll enqueues more.  The decode's later waves still
+  run inside the final read-back, so only part of it overlaps ingest;
+  ``PERF.md`` records the measured share.
 
 ``Session`` and ``ShardedSession`` are thin single-peer wrappers over this
 module.  A unit whose device decode overflows ``max_diff`` falls back to
@@ -312,8 +315,9 @@ class PendingRound:
         self.n_dispatches = len(dispatches)
 
     def poll(self) -> bool:
-        """True once every bucket's device result is ready (non-blocking)."""
-        return all(pending.ready() for _, pending in self._dispatches)
+        """True once every bucket's device result is ready (non-blocking;
+        every bucket is polled, so each enqueues its next chunk)."""
+        return all([pending.ready() for _, pending in self._dispatches])
 
     def finish(self) -> None:
         for units, pending in self._dispatches:
@@ -363,13 +367,13 @@ def execute_round(units: list[DecodeUnit], block_m: int = 256,
                 pad_units=_next_pow2(len(us)), device=device)
         elif len(us) == 1 and not us[0].peer.sharded:
             pending = ops.PendingBatchedDecode(
-                None, None, (), 0, nbytes, results=[ops.decode_device(
+                None, (), nbytes, results=[ops.decode_device(
                     *ops.host_symbols_to_device(works[0], device),
                     nbytes=nbytes, key=key, max_diff=us[0].peer.max_diff,
                     block_m=block_m, device=device)])
         else:
             pending = ops.PendingBatchedDecode(
-                None, None, (), 0, nbytes, results=ops.decode_device_batched(
+                None, (), nbytes, results=ops.decode_device_batched(
                     works, nbytes=nbytes, key=key, max_diff=D,
                     block_m=block_m, pad_units=_next_pow2(len(us)),
                     device=device))
@@ -413,10 +417,13 @@ class ReconcileEngine:
         decoded prefix).  ``False`` reproduces the serial lockstep
         request → offer → decode trajectory exactly;
         :func:`~repro_torch.protocol.session.run_session` uses that mode.
-        On the card the batched dispatch still completes synchronously
-        today (see :class:`~repro_torch.kernels.ops.PendingBatchedDecode`),
-        so ``True`` hides none of the decode behind ingest yet, while the
-        speculative windows still cost their extra wire bytes.
+        A batched dispatch enqueues its first chunk of waves and returns
+        without reading the card back
+        (:class:`~repro_torch.kernels.ops.PendingBatchedDecode`); between
+        peers the speculative gather polls the round, which enqueues more
+        waves of a decode that has not converged.  The waves left at
+        the read-back run while the host waits (PERF.md: the measured
+        hidden share).
     block_m: device tile size — the shape-bucket quantum.
 
     ``ticks`` counts plan/execute rounds, ``dispatches`` the batched
@@ -474,9 +481,13 @@ class ReconcileEngine:
             return ingest_frames(entry.peer, entry.stream.frames(lo, hi))
         return absorb_round(entry.peer, [(0, entry.stream.window(lo, hi), lo)])
 
-    def _gather(self, strict: bool = True) -> list[DecodeUnit]:
+    def _gather(self, strict: bool = True, poll=None) -> list[DecodeUnit]:
+        """Ingest one round of every live peer; ``poll`` (the in-flight
+        round's) is called before each peer, to keep its decode fed."""
         units = []
         for entry in self._peers:
+            if poll is not None:
+                poll()
             if not entry.peer.decoded:
                 units += self._gather_one(entry, strict=strict)
         return units
@@ -508,7 +519,7 @@ class ReconcileEngine:
             # device busy → absorb the next tick's frames now.  Speculative:
             # decodes in flight count as "not decoded", and a unit already
             # at max_m defers its non-convergence verdict.
-            staged = self._gather(strict=False)
+            staged = self._gather(strict=False, poll=round_.poll)
             round_.finish()
             # units that deferred (skipped by the speculative gather, still
             # undecoded after their results landed) get an authoritative

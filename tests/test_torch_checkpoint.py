@@ -112,6 +112,25 @@ def test_restore_refuses_a_mismatched_structure(tmp_path):
                       device="cpu")
 
 
+def test_zero_element_leaves_round_trip(tmp_path):
+    """Leaves of shapes (0,) and (3, 0) save, verify and restore in the
+    port (the reference's ``load_leaf`` cannot restore them: it asks for
+    one element and opens a chunk that was never written; ROADMAP, faults
+    found).  Both packages' ``verify()`` accept the store."""
+    tree = {"empty": torch.zeros(0), "wide": torch.zeros((3, 0),
+                                                          dtype=torch.int32),
+            "w": torch.arange(6, dtype=torch.float32).reshape(2, 3)}
+    store = CheckpointStore(str(tmp_path / "z"))
+    store.save(1, tree)
+    assert store.verify() == []
+    assert RefStore(store.root).verify() == []
+    back = store.restore({k: torch.empty_like(v) for k, v in tree.items()},
+                         device="cpu")
+    for k, v in tree.items():
+        assert back[k].shape == v.shape and back[k].dtype == v.dtype
+        assert torch.equal(back[k], v)
+
+
 def test_verify_detects_corruption(tmp_path):
     store = CheckpointStore(str(tmp_path / "c"))
     store.save(1, ported(numpy_tree(0)))

@@ -25,8 +25,8 @@ from repro_torch.kernels.map_indices import (launch_shape,  # noqa: E402
                                              map_indices)
 from repro_torch.core.encoder import encode  # noqa: E402
 from repro_torch.kernels.ops import host_symbols_to_device  # noqa: E402
-from repro_torch.kernels.peel import (PeelState, _stage1,  # noqa: E402
-                                      _stage2, iblt_apply, purity_scan)
+from repro_torch.kernels.peel import (WaveLoop, iblt_apply,  # noqa: E402
+                                      purity_scan)
 from repro_torch.kernels.ref import purity_ref  # noqa: E402
 
 KEYS = [hashing.DEFAULT_KEY, (0xFFFFFFFFFFFFFFFF, 0x8000000000000001)]
@@ -320,7 +320,7 @@ def test_iblt_apply_units_match_one_unit_applies():
 
 
 def test_stage1_hands_rows_ascending_with_units_in_order():
-    """The wave's rows reach ``_stage2`` (and the units ``iblt_apply``)
+    """The wave's kept rows reach ``_stage2`` (and the units ``iblt_apply``)
     ascending, so each unit's items are contiguous and its units
     non-decreasing: the scatter kernel keeps the hot rows of each block's
     first unit on chip and sends other units' slots to device memory, so a
@@ -339,21 +339,50 @@ def test_stage1_hands_rows_ascending_with_units_in_order():
         parts.append((torch.cat([sums, pad.expand(-1, L)]),
                       torch.cat([checks, pad.expand(-1, 2)]),
                       torch.cat([counts[:, None], pad])))
-    state = PeelState(*(torch.cat(p) for p in zip(*parts)),
-                      torch.zeros((0, L), dtype=torch.int32),
-                      torch.zeros((0, 2), dtype=torch.int32),
-                      torch.zeros(0, dtype=torch.int32),
-                      torch.zeros(0, dtype=torch.int64),
-                      np.zeros(U, np.int64), np.zeros(U, bool), 0)
-    kw = dict(key=hashing.DEFAULT_KEY, nbytes=nbytes)
-    m_units = torch.full((U,), m, dtype=torch.int32)
+    loop = WaveLoop(*(torch.cat(p) for p in zip(*parts)), [m] * U,
+                    key=hashing.DEFAULT_KEY, nbytes=nbytes, max_diff=10_000,
+                    K=mapping.kmax(mp))
     for _ in range(2):
-        rows, side, _, _ = _stage1(state, mp=mp, cap=mp, max_diff=10_000,
-                                   **kw)
-        units = rows // mp
+        wave = loop._stage1(loop.state)
+        n = int(wave.count)
+        rows, units = wave.rows[:n], wave.unit[:n].long()
         assert len(set(units.tolist())) >= 3
         assert bool((rows[1:] > rows[:-1]).all())
         assert bool((units[1:] >= units[:-1]).all())
-        state = _stage2(state, rows, side, m_units, mp=mp,
-                        K=mapping.kmax(mp), **kw)
-    assert state.rec_units.numel() > rows.numel()
+        assert torch.equal(units, rows // mp)
+        assert bool((wave.sides[n:] == 0).all())
+        n_before = int(loop.state.n_rec.sum())
+        loop.state = loop._stage2(loop.state, wave)
+    assert int(loop.state.n_rec.sum()) > n_before > 0
+
+
+def test_launches_inside_a_graph_count_at_each_replay():
+    """A wrapper launching while a CUDA graph is captured records the
+    launch in the graph instead of counting it; each replay of the graph
+    then counts every launch it holds."""
+    from repro_torch.kernels import _build
+
+    def kernel():
+        pass
+    kernel.launches = 0
+    _build.count_launch(kernel)
+    assert kernel.launches == 1
+    _build._captured = []
+    try:
+        _build.count_launch(kernel)
+        _build.count_launch(kernel)
+        held = tuple(_build._captured)
+    finally:
+        _build._captured = None
+    assert kernel.launches == 1 and held == (kernel, kernel)
+
+    class Replayed:
+        replays = 0
+
+        def replay(self):
+            self.replays += 1
+    graph = object.__new__(_build.CountedGraph)
+    graph.graph, graph.kernels = Replayed(), held
+    for _ in range(3):
+        graph.replay()
+    assert graph.graph.replays == 3 and kernel.launches == 1 + 2 * 3

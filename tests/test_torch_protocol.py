@@ -301,7 +301,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.protocol.sharded, repro_torch.kernels.iblt_encode, "
             "repro_torch.core.wire, repro_torch.checkpoint, "
             "repro_torch.core.sketch, repro_torch.core.de, "
-            "repro_torch.core.baselines, chip_smoke; "
+            "repro_torch.core.baselines, repro_torch.configs, "
+            "repro_torch.models, repro_torch.models.convert, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.') or m == 'ml_dtypes']; print(bad); "

@@ -8,6 +8,7 @@ where one run of it is cheap — its batched decode pays a jit compile per
 shape bucket, its host backend pays none — and against the port's own
 per-unit ``decode_device`` elsewhere.
 """
+
 import numpy as np
 import pytest
 
@@ -27,10 +28,10 @@ from repro.protocol import ShardedStream as RefShardedStream  # noqa: E402
 from repro.protocol import run_sharded_session as ref_run_sharded  # noqa: E402
 from repro.protocol import shard_of as ref_shard_of  # noqa: E402
 
-from repro_torch.core import CodedSymbols, Encoder  # noqa: E402
+from repro_torch.core import CodedSymbols, Encoder, kmax  # noqa: E402
 from repro_torch.core.wire import (decode_shard_frames,  # noqa: E402
                                    encode_frames, encode_shard_frames)
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, peel  # noqa: E402
 from repro_torch.kernels.ops import (decode_device,  # noqa: E402
                                      decode_device_batched,
                                      decode_device_batched_start,
@@ -219,6 +220,86 @@ def test_batched_start_is_ready_on_cpu_and_refuses_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ShardedSession(n_shards=2, nbytes=8,
                        backend="host").set_backend("device")
+
+
+# ------------------------------------------------------------ wave loop --
+def _decode_with_reads(units, chunk, **kw):
+    """decode_device_batched_start with a wave loop that reads its stop
+    flag every ``chunk`` waves: (results, the dispatch's host reads, the
+    read_back waits it made)."""
+    before = peel.read_back.count
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(peel, "WAVES_PER_CHUNK", chunk)
+        pending = decode_device_batched_start(units, nbytes=8, device="cpu",
+                                              **kw)
+    got = pending.wait()
+    return got, pending.host_reads, peel.read_back.count - before
+
+
+def _same(a, b):
+    for f in ("items", "hashes", "sides"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert (a.success, a.overflow, a.rounds) == (b.success, b.overflow,
+                                                 b.rounds)
+    for f in ("sums", "checks", "counts"):
+        np.testing.assert_array_equal(getattr(a.residual, f),
+                                      getattr(b.residual, f))
+
+
+@pytest.mark.parametrize("chunk", [peel.WAVES_PER_CHUNK, 2, 3, 7, 50])
+def test_wave_loop_chunks_change_nothing_and_bound_reads(chunk):
+    """The same dispatch read back every wave and every ``chunk`` waves:
+    the same items in the same order, hashes, sides, success, overflow,
+    rounds and residual.  Alone, the units converge after 5, 12
+    (overflowing), 3 and 8 waves, so chunks end mid-chunk for most of them
+    and their later waves are no-ops; the overflowing unit freezes alone;
+    a chunk of 50, longer than the whole decode, counts the same 12
+    rounds.  The dispatch waits for the card at most
+    ceil(waves / chunk) + 1 times, and ``host_reads`` counts exactly the
+    ``read_back`` waits."""
+    rng = np.random.default_rng(570)
+    units = [port_sym(u) for u in diff_units(rng, [20, 90, 9, 45],
+                                             [60, 130, 40, 80])]
+    kw = dict(max_diff=64, pad_units=8)
+    one, reads_one, waits_one = _decode_with_reads(units, 1, **kw)
+    got, reads, waits = _decode_with_reads(units, chunk, **kw)
+    assert [g.overflow for g in one] == [False, True, False, False]
+    assert [g.success for g in one] == [True, False, True, True]
+    for a, b in zip(got, one):
+        _same(a, b)
+    waves = one[0].rounds
+    assert waves == 12 and reads_one == waits_one == waves + 1
+    assert reads == waits <= -(-waves // chunk) + 1
+
+
+def test_wave_loop_count_and_side_zero_forms_agree():
+    """A wave's kernels A and C with ``count`` (the live items only) and
+    without it (every slot, the dropped ones at side 0) give the same
+    delta: the two ways the loop can leave its empty slots to the
+    kernels."""
+    rng = np.random.default_rng(580)
+    units = [port_sym(u) for u in diff_units(rng, [30, 5], [240, 240])]
+    sums, checks, counts = (torch.cat(t) for t in zip(
+        *(host_symbols_to_device(u, "cpu") for u in units)))
+    loop = peel.WaveLoop(sums, checks, counts.view(-1, 1), [240, 240],
+                         nbytes=8, key=DEFAULT_KEY, max_diff=64,
+                         K=kmax(256))
+    wave = loop._stage1(loop.state)
+    n = int(wave.count)
+    assert 0 < n < wave.items.shape[0]
+    kw = dict(K=kmax(256), m=loop.mp, nbytes=8, key=DEFAULT_KEY)
+    idx_c, chk_c = peel.map_indices(wave.items, count=wave.count, **kw)
+    idx_a, chk_a = peel.map_indices(wave.items, **kw)
+    assert torch.equal(idx_c[:n], idx_a[:n]) and torch.equal(chk_c[:n],
+                                                             chk_a[:n])
+    assert torch.equal(chk_a[:n], wave.chks[:n])
+    args = (wave.chks, wave.sides, wave.unit, loop.m_units)
+    with_count = peel.iblt_apply(wave.items, idx_c, *args, mp=loop.mp,
+                                 count=wave.count)
+    every_slot = peel.iblt_apply(wave.items, idx_a, *args, mp=loop.mp)
+    for a, b in zip(with_count, every_slot):
+        assert torch.equal(a, b)
+    assert bool(with_count[2].abs().sum() > 0)
 
 
 # ------------------------------------------------------------- sessions --
