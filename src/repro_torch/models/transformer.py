@@ -1,34 +1,30 @@
-"""Model assembly: the decoder-only stack for attention-family blocks with
-a uniform facade (init, loss, prefill, decode_step).
+"""Model assembly: decoder-only stacks (dense, MoE, RWKV-6, hybrid RG-LRU
+with local attention, the VLM backbone) with a uniform facade (init, loss,
+prefill, decode_step).
 
-Port of ``repro/models/transformer.py`` for the "attn" and "local" block
-kinds with a dense FFN: yi-9b, qwen3-4b, starcoder2-3b, mistral-large-123b
-and internvl2-76b's backbone (its vision frontend is the reference's stub
-of patch embeddings).  Depth is organized as the reference's repeated
-*periods* of ``cfg.block_pattern``: each kind's parameters are stacked
-over the period count in ``params["periods"]`` and leftover layers
-(depth % period) run as the "tail", so a parameter tree of the reference
-converts leaf for leaf (:mod:`.convert`).  The reference scans the
-periods with ``jax.lax.scan``; here a Python loop walks them.
+Port of ``repro/models/transformer.py``.  Block kinds are "attn" and
+"local" (:mod:`.attention`), "wkv" (:mod:`.rwkv6`, with its channel-mix
+FFN) and "rglru" (:mod:`.rglru`); the FFN is dense, or an MoE
+(:mod:`.moe`) when ``cfg.n_experts`` is set.  internvl2-76b's vision
+frontend is the reference's stub of patch embeddings.  Depth is organized
+as the reference's repeated *periods* of ``cfg.block_pattern``: each
+kind's parameters are stacked over the period count in
+``params["periods"]`` and leftover layers (depth % period) run as the
+"tail", so a parameter tree of the reference converts leaf for leaf
+(:mod:`.convert`).  The reference scans the periods with ``jax.lax.scan``;
+here a Python loop walks them.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from . import attention as att
+from . import moe as moe_mod
+from . import rglru as rg
+from . import rwkv6 as rwkv
 from .layers import (embed_lookup, init_embed, init_mlp, init_rmsnorm, mlp,
                      rmsnorm, unembed)
-
-NOT_PORTED = {
-    "wkv": "RWKV-6 blocks (ROADMAP queue 1, item 3.4, models/rwkv6.py)",
-    "rglru": "RG-LRU blocks (ROADMAP queue 1, item 3.5, models/rglru.py)",
-    "moe": "MoE FFNs (ROADMAP queue 1, item 3.3, models/moe.py)",
-}
-
-
-def _refuse(what: str):
-    raise NotImplementedError(f"{NOT_PORTED[what]} are not ported yet")
-
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
@@ -54,6 +50,21 @@ def _stack_trees(trees):
     return torch.stack(trees)
 
 
+def init_stacked(n: int, make):
+    """``_stack_trees([make() for _ in range(n)])`` (the same draws, in
+    the same order) holding one unstacked tree at a time, so a stack of
+    60 GB of experts needs no second 60 GB."""
+    leaves, spec = tree_flatten(make())
+    out = [torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                       device=t.device) for t in leaves]
+    for i in range(n):
+        if i:
+            leaves = tree_flatten(make())[0]
+        for o, t in zip(out, leaves):
+            o[i] = t
+    return tree_unflatten(out, spec)
+
+
 def shard_aware_ce(logits, labels):
     """Mean cross entropy over the positions whose label is >= 0: the
     value of the reference's ``shard_aware_ce`` (the sharding constraint
@@ -67,65 +78,130 @@ def shard_aware_ce(logits, labels):
 
 
 # --------------------------------------------------------------- blocks --
-def _check_kind(kind, cfg):
-    if kind in NOT_PORTED:
-        _refuse(kind)
-    if kind not in ("attn", "local"):
-        raise ValueError(kind)
-    if cfg.n_experts:
-        _refuse("moe")
-
-
 def init_block(gen, kind, cfg, dtype):
     """One sub-block's params: pre-norms + mixer + ffn."""
-    _check_kind(kind, cfg)
-    p = {"ln1": init_rmsnorm(cfg.d_model, dtype, gen.device),
-         "attn": att.init_attention(gen, cfg, dtype),
-         "ln2": init_rmsnorm(cfg.d_model, dtype, gen.device),
-         "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)}
+    p = {"ln1": init_rmsnorm(cfg.d_model, dtype, gen.device)}
+    if kind in ("attn", "local"):
+        p["attn"] = att.init_attention(gen, cfg, dtype)
+    elif kind == "wkv":
+        p["attn"] = rwkv.init_rwkv(gen, cfg, dtype)
+    elif kind == "rglru":
+        p["attn"] = rg.init_rglru(gen, cfg, dtype)
+    else:
+        raise ValueError(kind)
+    p["ln2"] = init_rmsnorm(cfg.d_model, dtype, gen.device)
+    if kind == "wkv":
+        p["ffn"] = rwkv.init_rwkv_ffn(gen, cfg, dtype)
+    elif cfg.n_experts:
+        p["ffn"] = moe_mod.init_moe(gen, cfg, dtype)
+    else:
+        p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
     return p
 
 
 def block_cache_spec(kind, cfg, B, S_ctx, dtype):
-    """Decode-state shapes and dtypes for one sub-block, as meta
-    tensors."""
-    _check_kind(kind, cfg)
-    w = S_ctx if kind == "attn" else min(cfg.window or S_ctx, S_ctx)
-    shp = (B, w, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.empty(shp, dtype=dtype, device="meta"),
-            "v": torch.empty(shp, dtype=dtype, device="meta")}
+    """Decode-state shapes and dtypes for one sub-block, as meta tensors;
+    the recurrent states are float32 where the reference keeps them so."""
+    def meta(shp, dt=dtype):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    dh, h = cfg.head_dim, cfg.n_heads
+    dr = cfg.d_rnn or cfg.d_model
+    if kind in ("attn", "local"):
+        w = S_ctx if kind == "attn" else min(cfg.window or S_ctx, S_ctx)
+        shp = (B, w, cfg.n_kv_heads, dh)
+        return {"k": meta(shp), "v": meta(shp)}
+    if kind == "wkv":
+        return {"state": meta((B, h, dh, dh), torch.float32),
+                "shift_a": meta((B, cfg.d_model)),
+                "shift_f": meta((B, cfg.d_model))}
+    if kind == "rglru":
+        return {"h": meta((B, dr), torch.float32),
+                "conv": meta((B, rg.CONV_W - 1, dr))}
+    raise ValueError(kind)
 
 
-def block_forward(x, p, kind, cfg):
-    """Full-sequence pass.  Returns (x_out, new_state, aux_loss)."""
+def _ffn(h, p, cfg, drops):
+    """The dense or MoE FFN: (out, aux_loss)."""
+    if cfg.n_experts:
+        return moe_mod.moe_ffn(h, p, cfg, drops)
+    return mlp(h, p), 0.0
+
+
+def block_forward(x, p, kind, cfg, drops=None):
+    """Full-sequence pass from zero recurrent state.  Returns (x_out,
+    new_state, aux_loss).  ``drops`` goes to an MoE FFN
+    (:func:`.moe.moe_ffn`)."""
+    B = x.shape[0]
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    window = cfg.window if kind == "local" else 0
-    o, ck, cv = att.attention(h, p["attn"], cfg, window=window,
-                              return_kv=True)
+    if kind in ("attn", "local"):
+        window = cfg.window if kind == "local" else 0
+        o, ck, cv = att.attention(h, p["attn"], cfg, window=window,
+                                  return_kv=True)
+        state = {"k": ck, "v": cv}
+    elif kind == "wkv":
+        shift = torch.zeros((B, cfg.d_model), dtype=x.dtype, device=x.device)
+        s0 = torch.zeros((B, cfg.n_heads, cfg.head_dim, cfg.head_dim),
+                         device=x.device)
+        o, shift_out, s_new = rwkv.rwkv_block(h, p["attn"], cfg, shift, s0)
+        state = {"state": s_new, "shift_a": shift_out}
+    elif kind == "rglru":
+        dr = cfg.d_rnn or cfg.d_model
+        conv = torch.zeros((B, rg.CONV_W - 1, dr), dtype=x.dtype,
+                           device=x.device)
+        h0 = torch.zeros((B, dr), device=x.device)
+        o, conv, hl = rg.rglru_block(h, p["attn"], cfg, conv, h0)
+        state = {"h": hl, "conv": conv}
+    else:
+        raise ValueError(kind)
     x = x + o
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(h, p["ffn"]), {"k": ck, "v": cv}, 0.0
+    if kind == "wkv":
+        shift = torch.zeros((B, cfg.d_model), dtype=x.dtype, device=x.device)
+        o, state["shift_f"] = rwkv.rwkv_ffn(h, p["ffn"], shift)
+        aux = 0.0
+    else:
+        o, aux = _ffn(h, p["ffn"], cfg, drops)
+    return x + o, state, aux
 
 
-def block_decode(x, p, kind, cfg, cache, pos):
-    """One-token step.  Returns (x_out, new_cache); the cache's tensors
-    are updated in place."""
+def block_decode(x, p, kind, cfg, cache, pos, drops=None):
+    """One-token step.  Returns (x_out, cache); the cache's tensors are
+    updated in place."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    window = cfg.window if kind == "local" else 0
-    o, ck, cv = att.attention_decode(h, p["attn"], cfg, cache["k"],
-                                     cache["v"], pos, window=window)
+    new = {}
+    if kind in ("attn", "local"):
+        window = cfg.window if kind == "local" else 0
+        o, _, _ = att.attention_decode(h, p["attn"], cfg, cache["k"],
+                                       cache["v"], pos, window=window)
+    elif kind == "wkv":
+        o, new["shift_a"], new["state"] = rwkv.rwkv_decode(
+            h, p["attn"], cfg, cache["shift_a"], cache["state"])
+    elif kind == "rglru":
+        o, new["conv"], new["h"] = rg.rglru_decode(
+            h, p["attn"], cfg, cache["conv"], cache["h"])
+    else:
+        raise ValueError(kind)
     x = x + o
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(h, p["ffn"]), dict(cache, k=ck, v=cv)
+    if kind == "wkv":
+        o, new["shift_f"] = rwkv.rwkv_ffn(h, p["ffn"], cache["shift_f"])
+    else:
+        o, _ = _ffn(h, p["ffn"], cfg, drops)
+    for k, v in new.items():
+        cache[k].copy_(v)
+    return x + o, cache
 
 
 # ---------------------------------------------------------------- model --
 class Model:
-    """Decoder-only language model of attention-family blocks.
+    """Decoder-only language model (dense, MoE, RWKV-6, hybrid, VLM
+    backbone).
 
     ``device`` is where :meth:`init` puts the parameters and where the
-    model expects its inputs.  Block kinds and FFNs that are not ported
-    yet raise ``NotImplementedError`` at construction.
+    model expects its inputs.  ``moe_drops``, if set to a list, gets each
+    EP MoE call's dropped (token, expert) pair count appended as a 0-dim
+    device tensor, in call order (48 a forward of Qwen3-30B-A3B).
     """
 
     def __init__(self, cfg, device="cuda"):
@@ -136,8 +212,7 @@ class Model:
         self.n_periods = len(pattern) // period
         self.period_kinds = list(cfg.block_pattern)
         self.tail_kinds = pattern[self.n_periods * period:]
-        for kind in dict.fromkeys(pattern):
-            _check_kind(kind, cfg)
+        self.moe_drops = None
 
     # -- params ----------------------------------------------------------
     def init(self, gen: torch.Generator):
@@ -151,8 +226,8 @@ class Model:
                                       dtype)
         p["ln_f"] = init_rmsnorm(cfg.d_model, dtype, gen.device)
         p["periods"] = [
-            _stack_trees([init_block(gen, kind, cfg, dtype)
-                          for _ in range(self.n_periods)])
+            init_stacked(self.n_periods,
+                         lambda kind=kind: init_block(gen, kind, cfg, dtype))
             for kind in self.period_kinds] if self.n_periods else \
             [{} for _ in self.period_kinds]
         p["tail"] = [init_block(gen, kind, cfg, dtype)
@@ -168,25 +243,32 @@ class Model:
 
     def _stack(self, params, x):
         """The blocks and the final norm.  Returns (x, states, aux): each
-        kind's decode state stacked over the periods, and the tail's."""
+        kind's decode state stacked over the periods, the tail's, and the
+        MoE load-balance loss summed over the layers (0.0 without
+        experts)."""
         cfg = self.cfg
-        per_period = []
+        per_period, auxs = [], []
         for i in range(self.n_periods):
-            states = []
+            states, aux = [], 0.0
             for j, kind in enumerate(self.period_kinds):
-                x, st, _ = block_forward(x, _index(params["periods"][j], i),
-                                         kind, cfg)
+                x, st, a = block_forward(x, _index(params["periods"][j], i),
+                                         kind, cfg, self.moe_drops)
                 states.append(st)
+                aux = aux + a
             per_period.append(states)
+            auxs.append(aux)
         periods = [_stack_trees([s[j] for s in per_period])
                    for j in range(len(self.period_kinds))] \
             if per_period else []
+        aux_total = sum(auxs) if cfg.n_experts else 0.0
         tail = []
         for i, kind in enumerate(self.tail_kinds):
-            x, st, _ = block_forward(x, params["tail"][i], kind, cfg)
+            x, st, a = block_forward(x, params["tail"][i], kind, cfg,
+                                     self.moe_drops)
             tail.append(st)
+            aux_total = aux_total + a
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-        return x, {"periods": periods, "tail": tail}, 0.0
+        return x, {"periods": periods, "tail": tail}, aux_total
 
     def logits(self, params, x):
         emb = params["embed"] if self.cfg.tie_embeddings else params["unembed"]
@@ -213,8 +295,9 @@ class Model:
 
     def prefill(self, params, batch):
         """Full forward; returns (last-position logits, decode states): each
-        block's K/V cache over the prompt (a rolling buffer of the last
-        ``window`` positions for "local" blocks)."""
+        attention block's K/V cache over the prompt (a rolling buffer of the
+        last ``window`` positions for "local" blocks), each recurrent
+        block's state after the prompt."""
         x = self._embed_inputs(params, batch)
         x, states, _ = self._stack(params, x)
         return self.logits(params, x[:, -1:]), states
@@ -228,10 +311,10 @@ class Model:
             for j, kind in enumerate(self.period_kinds):
                 x, _ = block_decode(x, _index(params["periods"][j], i), kind,
                                     cfg, _index(caches["periods"][j], i),
-                                    pos)
+                                    pos, self.moe_drops)
         for i, kind in enumerate(self.tail_kinds):
             x, _ = block_decode(x, params["tail"][i], kind, cfg,
-                                caches["tail"][i], pos)
+                                caches["tail"][i], pos, self.moe_drops)
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
         return self.logits(params, x), caches
 

@@ -85,11 +85,41 @@ def test_all_full_configs_construct():
     assert list(configs.cells(True)) == list(ref_configs.cells(True))
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-2b",
-                                  "qwen3-moe-30b-a3b", "whisper-base"])
-def test_unported_families_refuse(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(configs.smoke_config(arch), device="cpu")
+@pytest.mark.parametrize("arch", configs.ARCHS)
+def test_every_arch_builds_prefills_and_decodes(arch):
+    """Every config of the repo serves on the port at its smoke size:
+    ``build_model`` constructs it, ``prefill`` and two ``decode_step``s run
+    on caches shaped by ``cache_spec``, and the logits are finite."""
+    cfg = configs.smoke_config(arch)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)))}
+    n = 8
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = torch.randn(2, cfg.n_patches, cfg.d_model)
+        n += cfg.n_patches
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = torch.randn(2, cfg.encoder_frames, cfg.d_model)
+    last, states = model.prefill(params, batch)
+    assert tuple(last.shape) == (2, 1, cfg.padded_vocab)
+    spec = model.cache_spec(2, n + 2)
+    assert len(_leaves(states)) == len(_leaves(spec))
+    caches = _zeros_like(spec)
+    tok = batch["tokens"][:, -1:]
+    for t in range(2):
+        lg, caches = model.decode_step(params, tok, caches,
+                                       torch.full((2,), n + t))
+        assert bool(torch.isfinite(lg[..., :cfg.vocab]).all())
+        tok = lg[:, 0, :cfg.vocab].argmax(-1, keepdim=True)
+
+
+def _zeros_like(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_zeros_like(v) for v in tree]
+    return torch.zeros(tree.shape, dtype=tree.dtype)
 
 
 # -------------------------------------------------------------- layers --

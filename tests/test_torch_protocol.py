@@ -302,7 +302,10 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.core.wire, repro_torch.checkpoint, "
             "repro_torch.core.sketch, repro_torch.core.de, "
             "repro_torch.core.baselines, repro_torch.configs, "
-            "repro_torch.models, repro_torch.models.convert, chip_smoke; "
+            "repro_torch.models, repro_torch.models.convert, "
+            "repro_torch.models.moe, repro_torch.models.rwkv6, "
+            "repro_torch.models.rglru, repro_torch.models.encdec, "
+            "chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.') or m == 'ml_dtypes']; print(bad); "
