@@ -11,7 +11,10 @@ through one pipelined ``ReconcileEngine`` with batched decodes.  A fourth
 main path repairs a checkpoint store the size of Qwen3-4B's (16-byte
 manifest records), and ``reconcile_sets`` runs once on the card.  Last,
 the model stack serves Qwen3-4B, Qwen3-30B-A3B, RWKV-6 1.6B,
-RecurrentGemma-2B and Whisper-base at full width and depth in bf16.
+RecurrentGemma-2B and Whisper-base at full width and depth in bf16, and
+the training stack trains Qwen3-4B at full width and depth, then the
+training driver crashes and repairs its checkpoint from a peer through
+the decode kernels (a fifth main path).
 
     python3 chip_smoke.py [--seed N]
 
@@ -75,6 +78,24 @@ Phases, one line each:
      prefill, greedy decode, the decode against a teacher-forced forward
      (held in fp32 at full depth, bf16 reported), the card against the
      CPU in fp32 at a few layers
+ 13. training: (a) ``get_config("qwen3-4b")`` unchanged (bf16, remat,
+     AdamW with fp32 state; 4,057,526,400 parameters) for 6 steps of
+     ``make_train_step`` at B = 2, S = 4,096 (train_4k's length, its
+     global batch cut to one card): seconds a step over steps 2-5,
+     tokens/s, the model FLOP share, host syncs in steps 2-5, step 6's
+     busy share under the profiler, peak memory; finite losses and grad
+     norms, the optimizer at step 6, every leaf moved; (b) one step at
+     Qwen3-4B's width and vocabulary, 1 layer, fp32, B = 1, S = 256, on
+     the card against the CPU: the loss, every gradient leaf and every
+     update; (c) one step of every family at its smoke config, card
+     (remat) against CPU: MoE in EP and TP, microbatches, int8 error
+     feedback over 2 steps, kimi-k2's Adafactor settings; (d) the driver
+     (``python -m repro_torch.launch.train``, smoke starcoder2-3b) exits
+     17 after its step-5 checkpoint; 2 chunks overwritten are repaired
+     in-process by ``launch.train.recover`` from a copy through the
+     decode kernels (their launches counted: main path 5), then the driver,
+     rerun with ``--peer-dir``, repairs, resumes from step 5 and
+     finishes
 Launch counts are set to 0 just before each main path and read just after
 it; each main path runs under torch.profiler (CUDA activity only), which
 must trace exactly the counted launches of each kernel, op by op or in a
@@ -88,6 +109,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -153,6 +175,48 @@ FAMILIES = {  # arch -> (prompt tokens, greedy steps, bf16 decode-vs-forward
     "recurrentgemma-2b": (1_024, 32, 0.25, 3),   # rglru, rglru, local
     "whisper-base": (416, 32, 0.1, 2),       # 448: the decoder's context
 }
+# phase 13: training.  13a trains get_config("qwen3-4b") unchanged (bf16,
+# remat, AdamW with fp32 state) on batches of train_4k's length, its global
+# batch of 256 cut to what one card holds; the schedule warms up in one
+# step to TRAIN_LR, since under the default 100-step warm-up the first
+# updates (<= 1.8e-5) are below half a bf16 step of every weight above
+# ~0.005 and of the norms' 1.0s, and round away (no fp32 master copy, as
+# in the reference)
+TRAIN_ARCH, TRAIN_PARAMS, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = \
+    "qwen3-4b", 4_057_526_400, 2, 4_096, 6, 3e-3
+PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
+# 13b: card against CPU at full width, 1 layer, fp32, one step
+HELD_B, HELD_S = 1, 256
+HELD_LOSS_TOL = 1e-4       # |loss_card - loss_cpu|
+HELD_GRAD_TOL = 1e-4       # per leaf ||g_card - g_cpu|| / ||g_cpu||
+HELD_UPDATE_TOL = 1e-2     # per leaf, of p1 - p0: AdamW's first update is
+#                            ~lr·sign(g), and a component of g within float
+#                            noise of 0 may take either sign
+# 13c: every family at smoke width, card (remat on) against CPU (remat
+# off), batches of SMOKE_B x SMOKE_S: (arch, config edit, microbatches,
+# int8 error feedback, steps, optimizer settings of another arch, update
+# tolerance)
+SMOKE_B, SMOKE_S = 2, 32
+SMOKE_LOSS_TOL, SMOKE_GNORM_TOL = 1e-4, 1e-4   # absolute; relative
+TRAIN_CASES = [
+    ("qwen3-4b", {}, 1, False, 1, None, 1e-2),
+    ("starcoder2-3b", {}, 1, False, 1, None, 1e-2),
+    ("qwen3-moe-30b-a3b", {}, 1, False, 1, None, 1e-2),
+    ("qwen3-moe-30b-a3b", {"moe_mode": "tp"}, 1, False, 1, None, 1e-2),
+    ("rwkv6-1.6b", {}, 1, False, 1, None, 1e-2),
+    ("recurrentgemma-2b", {}, 1, False, 1, None, 1e-2),
+    ("whisper-base", {}, 1, False, 1, None, 1e-2),
+    ("internvl2-76b", {}, 1, False, 1, None, 1e-2),
+    ("qwen3-4b", {}, 2, False, 1, None, 1e-2),
+    ("qwen3-4b", {}, 1, True, 2, None, 1e-2),
+    # Adafactor, bf16 state, no momentum, bf16 accumulation: a gradient
+    # rounded to bf16 may land one bf16 step apart
+    ("kimi-k2-1t-a32b", {}, 2, False, 1, "kimi-k2-1t-a32b", 5e-2),
+]
+# 13d: the driver's crash and repair on the card
+DRIVER_ARGS = ["--arch", "starcoder2-3b", "--smoke", "--steps", "10",
+               "--batch", "2", "--seq", "32", "--ckpt-every", "5"]
+TRAIN_CORRUPT = 2
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "map_indices": ("src/repro_torch/csrc/map_indices.cu",
                     "src/repro/kernels/map_indices.py:41"),
@@ -358,15 +422,20 @@ def spans_ms(spans: dict, launches: dict) -> dict:
     return {name: sum(ms) for name, ms in spans.items()}
 
 
-def profiler_ms(name: str, fn, reps: int = 20) -> float:
+def profiler_ms(name: str, fn, reps: int = 20, traces: int = 3) -> float:
     """Mean device ms of one launch of kernel ``name`` in a trace of
     ``reps`` calls of ``fn`` (torch.profiler's own timing of the kernel,
-    without the launch gaps an event pair spans)."""
-    with launch_spans([name]) as spans:
-        for _ in range(reps):
-            fn()
-    check(len(spans[name]) > 0, f"{name}: no launch traced")
-    return sum(spans[name]) / len(spans[name])
+    without the launch gaps an event pair spans).  A trace this short
+    can come back without the kernel's launches (seen once on the H100,
+    on a host slower than usual), so it is taken again, ``traces`` times
+    at most, until one holds them."""
+    for _ in range(traces):
+        with launch_spans([name]) as spans:
+            for _ in range(reps):
+                fn()
+        if spans[name]:
+            return sum(spans[name]) / len(spans[name])
+    raise AssertionError(f"{name}: no launch traced in {traces} traces")
 
 
 def words_on_card(records: np.ndarray) -> torch.Tensor:
@@ -1400,8 +1469,11 @@ def host_syncs(fn) -> list:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return [f"{Path(w.filename).name}:{w.lineno}" for w in seen
-            if "synchroniz" in str(w.message)]
+    # the mode's own notice ("Synchronization debug mode is a prototype
+    # feature ...") is no sync
+    return [f"{'/'.join(Path(w.filename).parts[-2:])}:{w.lineno}"
+            for w in seen if "synchroniz" in str(w.message)
+            and "prototype feature" not in str(w.message)]
 
 
 def _clone(tree):
@@ -1850,6 +1922,389 @@ def phase_serve_family(arch: str, seed: int) -> None:
           f"{cpu_diff} > {CARD_CPU_TOL}")
 
 
+def _leaves_of(tree) -> list:
+    return torch.utils._pytree.tree_flatten(tree)[0]
+
+
+def _finite(values) -> bool:
+    return all(bool(torch.isfinite(torch.as_tensor(v)).all())
+               for v in values)
+
+
+def _train_flops(cfg, n_params: int, B: int, S: int) -> float:
+    """Model FLOPs of one training step: 6·N·T for the weights' matmuls
+    (N every parameter, T = B·S tokens) plus causal attention's
+    6·B·S²·L·H·dh (QKᵀ and PV, 2·B·H·S²·dh each forward, halved by the
+    mask, times 3 for the backward); remat's recomputation not counted."""
+    return 6.0 * n_params * B * S + \
+        6.0 * B * S * S * cfg.n_layers * cfg.n_heads * cfg.head_dim
+
+
+def phase_train(seed: int) -> None:
+    """Phase 13a: ``get_config("qwen3-4b")`` trained at full width and depth
+    on the card: bf16 weights from the port's init, remat, AdamW with
+    fp32 state, TRAIN_STEPS steps of ``make_train_step`` on the driver's
+    ``synthetic_batch`` at B = TRAIN_B, S = TRAIN_S, drawn onto the card
+    before the steps.  Step 1 warms up, its peak memory read after the
+    gradients and after the update; steps 2-5 run with the sync debug
+    mode at "warn" (host syncs a step) and are timed by event pairs; step
+    6 runs under the profiler (the card's busy share).  Checks: finite
+    losses and gradient norms, the optimizer's step 6, every parameter
+    leaf moved."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import (init_train_state, make_opt_config,
+                                        make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.remat and cfg.dtype == "bfloat16" and cfg.optimizer == "adamw"
+          and cfg.opt_state_dtype == "float32", "qwen3-4b's training config "
+          "changed")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=DEVICE)
+    opt_cfg = dataclasses.replace(
+        make_opt_config(cfg, total_steps=TRAIN_STEPS), warmup=1, lr=TRAIN_LR)
+    t0 = time.perf_counter()
+    params, opt_state, _ = init_train_state(
+        model, opt_cfg, torch.Generator(device=DEVICE).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = _leaves_of(params)
+    n_params = sum(t.numel() for t in leaves)
+    check(n_params == TRAIN_PARAMS, f"{n_params:,} parameters, not "
+          f"{TRAIN_PARAMS:,}")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves_of(opt_state))
+    before = [t.detach().to("cpu", copy=True) for t in leaves]
+    step = make_train_step(model, opt_cfg)
+    B, S = TRAIN_B, TRAIN_S
+    batches = [synthetic_batch(cfg, t, B, S, DEVICE)
+               for t in range(TRAIN_STEPS)]
+    metrics = []
+
+    def one(t):
+        nonlocal params, opt_state
+        params, opt_state, m = step(params, opt_state, batches[t])
+        metrics.append((m["loss"], m["grad_norm"]))
+
+    with _step_peaks() as peaks:
+        one(0)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+
+    def timed_steps():
+        events[0].record()
+        for t in range(1, 5):
+            one(t)
+            events[t].record()
+
+    syncs = host_syncs(timed_steps)
+    events[-1].synchronize()
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(4)]
+    busy_ms, wall_ms, top = step_busy(lambda: one(5))
+    peak = max(peaks[0], torch.cuda.max_memory_allocated())
+    losses = [float(m[0]) for m in metrics]
+    gnorms = [float(m[1]) for m in metrics]
+    check(_finite(losses + gnorms), f"non-finite loss or grad norm: "
+          f"{losses} {gnorms}")
+    check(int(opt_state["step"]) == TRAIN_STEPS, f"optimizer step "
+          f"{int(opt_state['step'])}, not {TRAIN_STEPS}")
+    still = [i for i, (a, b) in enumerate(zip(before, _leaves_of(params)))
+             if torch.equal(a.to(DEVICE), b.detach())]
+    check(not still, f"{len(still)} parameter leaves did not move: {still}")
+    mean_s = sum(step_ms) / len(step_ms) / 1e3
+    flops = _train_flops(cfg, n_params, B, S)
+    say(f"phase 13a train {TRAIN_ARCH}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, heads of {cfg.head_dim}, bf16, remat, AdamW "
+        f"(state {opt_cfg.state_dtype}, lr {opt_cfg.lr} after a 1-step "
+        f"warm-up): {n_params:,} parameters (init {init_s:.2f} s), optimizer "
+        f"state {state_bytes:,} bytes; train_4k's global batch of 256 cut "
+        f"to B={B} of S={S} on one card ({B * S:,} tokens a step); "
+        f"{TRAIN_STEPS} steps, losses {[round(v, 4) for v in losses]}, grad "
+        f"norms {[round(v, 4) for v in gnorms]}; steps 2-5 "
+        f"{[round(v / 1e3, 4) for v in step_ms]} s (event pairs): "
+        f"{mean_s:.4f} s a step = {B * S / mean_s:,.0f} tokens/s; step 6 "
+        f"under the profiler: kernels {busy_ms:.1f} ms of {wall_ms:.1f} ms "
+        f"wall (busy {busy_ms / wall_ms:.3f}), largest {top}; model FLOPs "
+        f"a step {flops:.4e} (6·N·T + 6·B·S²·L·H·dh) over "
+        f"{PEAK_BF16_FLOPS:.0e} FLOP/s dense bf16: FLOP share "
+        f"{flops / PEAK_BF16_FLOPS / mean_s:.4f}; host syncs in steps 2-5: "
+        f"{len(syncs)} {dict(collections.Counter(syncs))}; "
+        f"max_memory_allocated {peak:,} bytes (step 1: {peaks[0]:,} to its "
+        f"gradients, {peaks[1]:,} in its update); every leaf moved; "
+        f"{_smi()}")
+    del params, opt_state, model, before, leaves, step, metrics, batches
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _step_peaks():
+    """Peak bytes allocated on the card while the block runs one train
+    step, to the end of its gradients and within its update: a wrapper
+    around ``loop.loss_and_grads`` and ``loop.apply_updates``."""
+    from repro_torch.train import loop
+    grads_fn, update_fn, peaks = loop.loss_and_grads, loop.apply_updates, []
+
+    def grads(*args):
+        out = grads_fn(*args)
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    def update(*args):
+        out = update_fn(*args)
+        peaks.append(torch.cuda.max_memory_allocated())
+        return out
+
+    loop.loss_and_grads, loop.apply_updates = grads, update
+    try:
+        yield peaks
+    finally:
+        loop.loss_and_grads, loop.apply_updates = grads_fn, update_fn
+
+
+@contextlib.contextmanager
+def _tapped_grads():
+    """Collect the gradients ``make_train_step`` computes while the block
+    runs (a wrapper around ``loop.loss_and_grads``)."""
+    from repro_torch.train import loop
+    real, seen = loop.loss_and_grads, []
+
+    def tap(*args):
+        out = real(*args)
+        seen.append(out[2])
+        return out
+
+    loop.loss_and_grads = tap
+    try:
+        yield seen
+    finally:
+        loop.loss_and_grads = real
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b|| on the CPU in float64 (0 where both are 0)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    nb = float(b.norm())
+    return float((a - b).norm()) / nb if nb else float((a - b).norm())
+
+
+def _train_both(cfg, opt_cfg, batches, microbatches=1, compression=False,
+                seed=0):
+    """The same parameters (drawn on the CPU from ``seed``) trained on the
+    card (``cfg`` with remat on) and on the CPU (as given), one step a
+    batch.  Returns per device: the losses, grad norms, each step's
+    gradients, the parameters before and after."""
+    from repro_torch.models import build_model
+    from repro_torch.train.compression import ErrorFeedbackInt8
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import init_state
+    cpu_params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(seed))
+    out = {}
+    for dev, c in ((DEVICE, cfg.scaled(remat=True)), ("cpu", cfg)):
+        model = build_model(c, device=dev)
+        params = _tree_to(cpu_params, torch.device(dev)) if dev != "cpu" \
+            else cpu_params
+        p0 = [t.detach().cpu().clone() for t in _leaves_of(params)]
+        state = init_state(opt_cfg, params)
+        step = make_train_step(
+            model, opt_cfg, microbatches=microbatches,
+            compression=ErrorFeedbackInt8() if compression else None)
+        losses, gnorms = [], []
+        with _tapped_grads() as grads:
+            for b in batches:
+                params, state, m = step(params, state,
+                                        {k: v.to(dev) for k, v in b.items()})
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+        out[dev] = {"losses": losses, "gnorms": gnorms, "grads": grads,
+                    "p0": p0, "p1": [t.detach().cpu()
+                                     for t in _leaves_of(params)]}
+        del model, params, state
+    torch.cuda.empty_cache()
+    return out[DEVICE], out["cpu"]
+
+
+def _update_gaps(card, cpu) -> list:
+    """Per leaf ||Δp_card - Δp_cpu|| / ||Δp_cpu||, Δp = p1 - p0."""
+    return [_rel(c1 - c0, u1 - u0) for c0, c1, u0, u1 in
+            zip(card["p0"], card["p1"], cpu["p0"], cpu["p1"])]
+
+
+def phase_train_held(seed: int) -> None:
+    """Phase 13b: one train step of Qwen3-4B's width and vocabulary at 1
+    layer in fp32 (B = 1, S = 256) on the card and on the CPU from the same
+    parameters and batch: the loss, each gradient leaf and each leaf's
+    update, each within its tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.train.loop import make_opt_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=1, dtype="float32")
+    opt_cfg = dataclasses.replace(make_opt_config(cfg, total_steps=1),
+                                  warmup=1)
+    t0 = time.perf_counter()
+    card, cpu = _train_both(cfg, opt_cfg, [synthetic_batch(
+        cfg, 0, HELD_B, HELD_S, "cpu")], seed=seed)
+    loss_gap = abs(card["losses"][0] - cpu["losses"][0])
+    grad_gaps = [_rel(a, b) for a, b in zip(_leaves_of(card["grads"][0]),
+                                            _leaves_of(cpu["grads"][0]))]
+    upd_gaps = _update_gaps(card, cpu)
+    say(f"phase 13b train held, {TRAIN_ARCH} width and vocab, 1 layer, fp32, "
+        f"B={HELD_B} S={HELD_S}, card (remat) vs CPU, one step: loss "
+        f"{card['losses'][0]:.6f} vs {cpu['losses'][0]:.6f}, |diff| "
+        f"{loss_gap:.2e} (tol {HELD_LOSS_TOL}); gradient leaves "
+        f"||g_card - g_cpu|| / ||g_cpu||: max {max(grad_gaps):.2e} over "
+        f"{len(grad_gaps)} leaves (tol {HELD_GRAD_TOL}); updates p1 - p0: "
+        f"max {max(upd_gaps):.2e} (tol {HELD_UPDATE_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(loss_gap <= HELD_LOSS_TOL, f"13b loss gap {loss_gap}")
+    check(max(grad_gaps) <= HELD_GRAD_TOL, f"13b gradient gaps {grad_gaps}")
+    check(max(upd_gaps) <= HELD_UPDATE_TOL, f"13b update gaps {upd_gaps}")
+
+
+def phase_train_families(seed: int) -> None:
+    """Phase 13c: each of TRAIN_CASES at its smoke config, card (remat) vs
+    CPU: the losses, the grad norms and every leaf's update."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.train.loop import make_opt_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    rows = []
+    for arch, edit, mb, comp, steps, opt_of, tol in TRAIN_CASES:
+        cfg = smoke_config(arch).scaled(**edit)
+        opt_cfg = make_opt_config(get_config(opt_of) if opt_of else cfg,
+                                  total_steps=steps)
+        opt_cfg = dataclasses.replace(opt_cfg, warmup=1)
+        batches = [synthetic_batch(cfg, t, SMOKE_B, SMOKE_S, "cpu")
+                   for t in range(steps)]
+        card, cpu = _train_both(cfg, opt_cfg, batches, mb, comp, seed)
+        loss_gap = max(abs(a - b) for a, b in zip(card["losses"],
+                                                  cpu["losses"]))
+        gnorm_gap = max(abs(a - b) / b for a, b in zip(card["gnorms"],
+                                                        cpu["gnorms"]))
+        upd = max(_update_gaps(card, cpu))
+        name = arch + "".join(f" {k}={v}" for k, v in edit.items()) + \
+            (f" mb={mb}" if mb > 1 else "") + (" int8-ef" if comp else "") + \
+            (f" {opt_cfg.kind}/{opt_cfg.state_dtype}/accum "
+             f"{opt_cfg.accum_dtype}" if opt_of else "")
+        rows.append(f"{name}: loss {loss_gap:.1e}, gnorm {gnorm_gap:.1e}, "
+                    f"update {upd:.1e}")
+        check(_finite(card["losses"] + card["gnorms"]), f"13c {name}: "
+              "non-finite")
+        check(loss_gap <= SMOKE_LOSS_TOL and gnorm_gap <= SMOKE_GNORM_TOL
+              and upd <= tol, f"13c {name}: loss gap {loss_gap}, grad norm "
+              f"gap {gnorm_gap}, update gap {upd} (tol {tol})")
+    say(f"phase 13c train every family at smoke width, B={SMOKE_B} "
+        f"S={SMOKE_S}, card (remat) vs CPU, gaps (loss abs tol "
+        f"{SMOKE_LOSS_TOL}, grad norm rel tol {SMOKE_GNORM_TOL}, update "
+        f"per case): {'; '.join(rows)}; {time.perf_counter() - t0:.1f} s")
+
+
+def _driver(args: list, timeout: int = 300):
+    """``python -m repro_torch.launch.train`` on the card with ``args``."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.train"]
+                          + DRIVER_ARGS + args, env=env, cwd=SRC.parent,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def _last_loss(stdout: str) -> float:
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("step ")]
+    check(bool(lines), "the driver printed no step line")
+    return float(lines[-1].split()[3])
+
+
+def _overwrite(store, n: int) -> list:
+    cids = sorted(store.manifest()["chunks"])[5:5 + n]
+    for cid in cids:
+        with open(store._chunk_path(cid), "wb") as f:
+            f.write(b"garbage")
+    return cids
+
+
+def phase_train_repair(seed: int, decode) -> dict:
+    """Phase 13d: the driver on the card crashes after step 6 (exit 17,
+    its step-5 store kept); a copy of that store is the healthy peer;
+    TRAIN_CORRUPT chunks of the local store are overwritten and
+    ``launch.train.recover`` repairs them in-process, fetching exactly
+    those chunks through the three decode kernels, whose launches are
+    counted (not traced: on the H100 a trace of its two waves came back
+    once without a launch the counters saw); then the store is corrupted
+    again and the driver, rerun with ``--peer-dir``, repairs, resumes
+    from step 5 and finishes; its last loss beside a run that never
+    crashed.  Returns the in-process repair's launches."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.train import recover
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import init_train_state, make_opt_config
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        local, peer, whole = tmp / "local", tmp / "peer", tmp / "whole"
+        r = _driver(["--ckpt-dir", str(local), "--fail-at", "6"])
+        check(r.returncode == 17 and "[ckpt] step 5" in r.stdout,
+              f"the crash run: exit {r.returncode}, {r.stdout[-400:]} "
+              f"{r.stderr[-800:]}")
+        shutil.copytree(local, peer)
+        store, healthy = CheckpointStore(str(local)), CheckpointStore(str(peer))
+        bad = _overwrite(store, TRAIN_CORRUPT)
+        check(sorted(store.verify()) == bad, "verify() misses the overwrite")
+        cfg = smoke_config("starcoder2-3b")
+        model = build_model(cfg, device=DEVICE)
+        params, opt_state, _ = init_train_state(
+            model, make_opt_config(cfg, total_steps=10),
+            torch.Generator(device=DEVICE).manual_seed(seed))
+        struct = torch.utils._pytree.tree_map(
+            lambda t: torch.empty_like(t, device="meta"),
+            {"params": params, "opt": opt_state})
+        reset_launches(decode)
+        state, start, rep = recover(store, struct, healthy, DEVICE)
+        launches = read_launches(decode)
+        man, peer_man = store.manifest()["chunks"], \
+            healthy.manifest()["chunks"]
+        check(rep.chunks_fetched == TRAIN_CORRUPT and store.verify() == []
+              and man == peer_man and start == 5, f"in-process repair: "
+              f"fetched {rep.chunks_fetched}, verify {store.verify()}, "
+              f"step {start}")
+        check(all(launches[fn.__name__] >= 1 for fn in decode),
+              f"a decode kernel did not launch in the repair: {launches}")
+        restored = _leaves_of(state)
+        check(all(t.device.type == torch.device(DEVICE).type
+                  for t in restored),
+              "restored off the card")
+        del state, params, opt_state, model, restored
+        again = _overwrite(store, TRAIN_CORRUPT)
+        r2 = _driver(["--ckpt-dir", str(local), "--peer-dir", str(peer)])
+        check(r2.returncode == 0 and f"[recover] {TRAIN_CORRUPT} corrupt "
+              f"chunks" in r2.stdout and "resumed from step 5" in r2.stdout
+              and f"[recover] fetched {TRAIN_CORRUPT} chunks" in r2.stdout
+              and r2.stdout.rstrip().endswith("done"), f"the repaired run: "
+              f"exit {r2.returncode}, {r2.stdout[-600:]} {r2.stderr[-800:]}")
+        r3 = _driver(["--ckpt-dir", str(whole)])
+        check(r3.returncode == 0, f"the uncrashed run: {r3.stderr[-800:]}")
+        resumed, straight = _last_loss(r2.stdout), _last_loss(r3.stdout)
+        check(_finite([resumed, straight]), "non-finite driver loss")
+        recovered = [ln for ln in r2.stdout.splitlines()
+                     if ln.startswith("[recover]")]
+    say(f"phase 13d train crash and repair on the card, driver "
+        f"{' '.join(DRIVER_ARGS)}: exit 17 after [ckpt] step 5; "
+        f"{TRAIN_CORRUPT} chunks overwritten ({bad}), repaired in-process: "
+        f"fetched {rep.chunks_fetched} chunks, {rep.symbols_used} symbols, "
+        f"{rep.total_bytes:,} bytes against {rep.naive_bytes:,}, verify() "
+        f"[], launches {launches}; overwritten again "
+        f"({again}) and the driver rerun with --peer-dir: {recovered}, "
+        f"done; last loss {resumed} resumed vs {straight} uncrashed "
+        f"(|diff| {abs(resumed - straight):.2e}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -2109,6 +2564,14 @@ def main() -> int:
     phase_serve_moe(args.seed)
     for arch in FAMILIES:
         phase_serve_family(arch, args.seed)
+    t13 = time.perf_counter()
+    phase_train(args.seed)
+    phase_train_held(args.seed)
+    phase_train_families(args.seed)
+    paths["train_repair"] = phase_train_repair(args.seed, decode)
+    for row in rows:
+        row["launches"] += paths["train_repair"].get(row["name"], 0)
+    say(f"phase 13 {time.perf_counter() - t13:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2116,7 +2579,8 @@ def main() -> int:
     say(f"total {time.perf_counter() - t0:.1f} s")
     say(smi)
     say(json.dumps({"kernels": rows, "checkpoint": {
-        "launches": paths["checkpoint"], "path_ms": path_ms["checkpoint"]}}))
+        "launches": paths["checkpoint"], "path_ms": path_ms["checkpoint"]},
+        "train_repair": {"launches": paths["train_repair"]}}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,11 @@ reference's stub: the model takes precomputed frame embeddings
 (B, frames, d_model).  Encoder blocks are bidirectional; decoder blocks
 are causal self-attention + cross-attention + MLP, with the zoo's
 RMSNorm + RoPE.  Layers are stacked over depth in ``params["enc"]`` and
-``params["dec"]``; a Python loop walks them where the reference scans.
+``params["dec"]``; a Python loop walks them where the reference scans,
+each stacked leaf split once a forward (``transformer._layers``).  Under
+autograd with ``cfg.remat`` each encoder and decoder block runs under
+``torch.utils.checkpoint``, as the reference wraps each in
+``jax.checkpoint``; the loss keeps no decode caches.
 """
 from __future__ import annotations
 
@@ -14,8 +18,8 @@ import torch
 from . import attention as att
 from .layers import embed_lookup, init_embed, init_mlp, init_rmsnorm, mlp, \
     rmsnorm, unembed
-from .transformer import _dtype, _index, _stack_trees, init_stacked, \
-    shard_aware_ce
+from .transformer import _dtype, _index, _layers, _stack_trees, \
+    init_stacked, remat, shard_aware_ce
 
 
 def _init_enc_block(gen, cfg, dtype):
@@ -43,14 +47,18 @@ def _enc_block(x, p, cfg):
     return x + mlp(h, p["ffn"])
 
 
-def _dec_block(x, p, cfg, enc_kv):
+def _dec_block(x, p, cfg, enc_kv, keep_cache=True):
+    """(x_out, the self-attention K/V, or None unless ``keep_cache``)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    o, ck, cv = att.attention(h, p["attn"], cfg, return_kv=True)
+    if keep_cache:
+        o, ck, cv = att.attention(h, p["attn"], cfg, return_kv=True)
+    else:
+        o = att.attention(h, p["attn"], cfg)
     x = x + o
     h = rmsnorm(x, p["ln_c"], cfg.norm_eps)
     x = x + att.cross_attention(h, p["cross"], cfg, *enc_kv)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(h, p["ffn"]), {"k": ck, "v": cv}
+    return x + mlp(h, p["ffn"]), {"k": ck, "v": cv} if keep_cache else None
 
 
 def _dec_block_step(x, p, cfg, cache, pos):
@@ -96,27 +104,29 @@ class EncDecModel:
 
     def encode(self, params, frames):
         x = frames.to(_dtype(self.cfg.dtype))
-        for i in range(params["enc"]["ln1"].shape[0]):
-            x = _enc_block(x, _index(params["enc"], i), self.cfg)
+        for lp in _layers(params["enc"], params["enc"]["ln1"].shape[0]):
+            x = remat(_enc_block, self.cfg, x, lp, self.cfg)
         return x
 
-    def _dec_stack(self, params, x, enc_out):
+    def _dec_stack(self, params, x, enc_out, keep_caches=True):
         """The decoder and the final norm.  Returns (x, caches): per layer
         the self-attention K/V over the tokens and the cross-attention K/V
-        of ``enc_out``, stacked over the layers."""
+        of ``enc_out``, stacked over the layers (None unless
+        ``keep_caches``)."""
         cfg = self.cfg
         caches = []
-        for i in range(cfg.n_layers):
-            lp = _index(params["dec"], i)
+        for lp in _layers(params["dec"], cfg.n_layers):
             kv = att.encode_kv(enc_out, lp["cross"], cfg)
-            x, cache = _dec_block(x, lp, cfg, kv)
-            caches.append(dict(cache, xk=kv[0], xv=kv[1]))
-        return rmsnorm(x, params["ln_f"], cfg.norm_eps), _stack_trees(caches)
+            x, cache = remat(_dec_block, cfg, x, lp, cfg, kv, keep_caches)
+            if keep_caches:
+                caches.append(dict(cache, xk=kv[0], xv=kv[1]))
+        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        return x, _stack_trees(caches) if keep_caches else None
 
     def loss(self, params, batch):
         enc_out = self.encode(params, batch["frames"])
         x = embed_lookup(params["embed"], batch["tokens"])
-        x, _ = self._dec_stack(params, x, enc_out)
+        x, _ = self._dec_stack(params, x, enc_out, keep_caches=False)
         logits = self._mask(unembed(x, params["embed"]))
         ce = shard_aware_ce(logits, batch["labels"])
         return ce, {"ce": ce, "aux": 0.0}

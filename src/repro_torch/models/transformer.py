@@ -12,11 +12,17 @@ kind's parameters are stacked over the period count in
 ``params["periods"]`` and leftover layers (depth % period) run as the
 "tail", so a parameter tree of the reference converts leaf for leaf
 (:mod:`.convert`).  The reference scans the periods with ``jax.lax.scan``;
-here a Python loop walks them.
+here a Python loop walks them, each stacked leaf split into its layers
+once a forward (:func:`_layers`), so that autograd builds a stacked
+leaf's gradient once and not once a layer.  Under autograd with
+``cfg.remat`` each period runs under ``torch.utils.checkpoint``, as the
+reference wraps it in ``jax.checkpoint``; the loss keeps no decode
+states.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from . import attention as att
@@ -37,6 +43,25 @@ def _index(tree, i):
     if isinstance(tree, (list, tuple)):
         return [_index(v, i) for v in tree]
     return tree[i]
+
+
+def _layers(tree, n: int) -> list:
+    """The n per-layer trees of a tree stacked over n layers: one
+    ``unbind`` a leaf, whose backward stacks the layers' gradients once."""
+    leaves, spec = tree_flatten(tree)
+    split = [t.unbind(0) for t in leaves]
+    return [tree_unflatten([s[i] for s in split], spec) for i in range(n)]
+
+
+def remat(fn, cfg, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``cfg.remat``
+    is set and autograd records: its activations are recomputed in the
+    backward pass instead of kept (the models draw no random numbers, so
+    no RNG state is saved)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def _stack_trees(trees):
@@ -70,9 +95,9 @@ def shard_aware_ce(logits, labels):
     value of the reference's ``shard_aware_ce`` (the sharding constraint
     there does not change the value)."""
     lse = torch.logsumexp(logits, dim=-1)
-    sel = torch.arange(logits.shape[-1], device=logits.device) == \
-        labels[..., None]
-    gold = torch.where(sel, logits, 0.0).sum(dim=-1)
+    # a gather, not the reference's one-hot select: no second (B, S, V)
+    # tensor, forward or backward; masked positions read id 0, times 0
+    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
     return ((lse - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
@@ -128,17 +153,21 @@ def _ffn(h, p, cfg, drops):
     return mlp(h, p), 0.0
 
 
-def block_forward(x, p, kind, cfg, drops=None):
+def block_forward(x, p, kind, cfg, drops=None, keep_state=True):
     """Full-sequence pass from zero recurrent state.  Returns (x_out,
-    new_state, aux_loss).  ``drops`` goes to an MoE FFN
-    (:func:`.moe.moe_ffn`)."""
+    new_state, aux_loss); the state is None unless ``keep_state``.
+    ``drops`` goes to an MoE FFN (:func:`.moe.moe_ffn`)."""
     B = x.shape[0]
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if kind in ("attn", "local"):
         window = cfg.window if kind == "local" else 0
-        o, ck, cv = att.attention(h, p["attn"], cfg, window=window,
-                                  return_kv=True)
-        state = {"k": ck, "v": cv}
+        if keep_state:
+            o, ck, cv = att.attention(h, p["attn"], cfg, window=window,
+                                      return_kv=True)
+            state = {"k": ck, "v": cv}
+        else:
+            o = att.attention(h, p["attn"], cfg, window=window)
+            state = {}
     elif kind == "wkv":
         shift = torch.zeros((B, cfg.d_model), dtype=x.dtype, device=x.device)
         s0 = torch.zeros((B, cfg.n_heads, cfg.head_dim, cfg.head_dim),
@@ -162,7 +191,7 @@ def block_forward(x, p, kind, cfg, drops=None):
         aux = 0.0
     else:
         o, aux = _ffn(h, p["ffn"], cfg, drops)
-    return x + o, state, aux
+    return x + o, state if keep_state else None, aux
 
 
 def block_decode(x, p, kind, cfg, cache, pos, drops=None):
@@ -201,7 +230,8 @@ class Model:
     ``device`` is where :meth:`init` puts the parameters and where the
     model expects its inputs.  ``moe_drops``, if set to a list, gets each
     EP MoE call's dropped (token, expert) pair count appended as a 0-dim
-    device tensor, in call order (48 a forward of Qwen3-30B-A3B).
+    device tensor, in call order (48 a forward of Qwen3-30B-A3B), once a
+    call also where ``cfg.remat`` recomputes it.
     """
 
     def __init__(self, cfg, device="cuda"):
@@ -241,33 +271,48 @@ class Model:
             x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
         return x
 
-    def _stack(self, params, x):
-        """The blocks and the final norm.  Returns (x, states, aux): each
-        kind's decode state stacked over the periods, the tail's, and the
-        MoE load-balance loss summed over the layers (0.0 without
-        experts)."""
+    def _period(self, x, layers, keep_states):
+        """One period of blocks: (x, their states, aux summed, the MoE
+        calls' dropped-pair counts).  The counts are returned, not
+        appended, so a recomputation under remat (whose outputs are
+        dropped) counts nothing."""
         cfg = self.cfg
-        per_period, auxs = [], []
+        drops = [] if self.moe_drops is not None else None
+        states, aux = [], 0.0
+        for kind, p in zip(self.period_kinds, layers):
+            x, st, a = block_forward(x, p, kind, cfg, drops, keep_states)
+            states.append(st)
+            aux = aux + a
+        return x, states, aux, drops
+
+    def _stack(self, params, x, keep_states=True):
+        """The blocks and the final norm.  Returns (x, states, aux): each
+        kind's decode state stacked over the periods and the tail's (None
+        unless ``keep_states``), and the MoE load-balance loss summed over
+        the layers (0.0 without experts)."""
+        cfg = self.cfg
+        per_layer = [_layers(p, self.n_periods) for p in params["periods"]]
+        per_period, aux_total = [], 0.0
         for i in range(self.n_periods):
-            states, aux = [], 0.0
-            for j, kind in enumerate(self.period_kinds):
-                x, st, a = block_forward(x, _index(params["periods"][j], i),
-                                         kind, cfg, self.moe_drops)
-                states.append(st)
-                aux = aux + a
+            x, states, aux, drops = remat(
+                self._period, cfg, x, [p[i] for p in per_layer],
+                keep_states)
+            if drops is not None:
+                self.moe_drops.extend(drops)
             per_period.append(states)
-            auxs.append(aux)
-        periods = [_stack_trees([s[j] for s in per_period])
-                   for j in range(len(self.period_kinds))] \
-            if per_period else []
-        aux_total = sum(auxs) if cfg.n_experts else 0.0
+            aux_total = aux_total + aux
         tail = []
         for i, kind in enumerate(self.tail_kinds):
             x, st, a = block_forward(x, params["tail"][i], kind, cfg,
-                                     self.moe_drops)
+                                     self.moe_drops, keep_states)
             tail.append(st)
             aux_total = aux_total + a
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        if not keep_states:
+            return x, None, aux_total
+        periods = [_stack_trees([s[j] for s in per_period])
+                   for j in range(len(self.period_kinds))] \
+            if per_period else []
         return x, {"periods": periods, "tail": tail}, aux_total
 
     def logits(self, params, x):
@@ -283,7 +328,7 @@ class Model:
     def loss(self, params, batch):
         """Causal LM loss.  labels < 0 are masked."""
         x = self._embed_inputs(params, batch)
-        x, _, aux = self._stack(params, x)
+        x, _, aux = self._stack(params, x, keep_states=False)
         labels = batch["labels"]
         if self.cfg.frontend == "vision_stub" and "patches" in batch:
             npz = batch["patches"].shape[1]

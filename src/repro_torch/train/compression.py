@@ -1,0 +1,64 @@
+"""Int8 error-feedback gradient compression for the cross-pod all-reduce.
+
+Port of ``repro/train/compression.py``.  Gradients are quantized to int8
+with a per-leaf scale before the (slow, cross-pod) reduction; the
+quantization residual is carried in an error-feedback buffer and added
+back next step, so the *accumulated* gradient is unbiased (Seide et al.;
+Karimireddy et al. 2019).  8× fewer bytes on the pod-crossing
+collective.  ``torch.round`` rounds half to even as ``jnp.round`` does,
+so ``q`` and ``scale`` are the reference's bit for bit.
+
+Plugs into ``make_train_step(compression=ErrorFeedbackInt8())``; the
+error buffer lives inside ``opt_state`` under ``"ef"``.
+"""
+from __future__ import annotations
+
+import torch
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+
+
+def _quantize(x):
+    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize(q, scale):
+    return q.float() * scale
+
+
+class ErrorFeedbackInt8:
+    """apply(grads, opt_state) -> (compressed-roundtrip grads, opt_state).
+
+    Numerically the quantize -> transport -> dequantize round trip plus
+    error feedback; on one device nothing crosses a wire.
+    """
+
+    def init(self, params):
+        return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                              device=p.device), params)
+
+    def apply(self, grads, opt_state):
+        ef = opt_state.get("ef")
+        if ef is None:
+            ef = self.init(grads)
+
+        def one(g, e):
+            corrected = g.float() + e
+            q, scale = _quantize(corrected)
+            deq = _dequantize(q, scale)
+            return deq.to(g.dtype), corrected - deq
+
+        flat_g, spec = tree_flatten(grads)
+        outs = [one(g, e) for g, e in zip(flat_g, spec.flatten_up_to(ef))]
+        new_g = tree_unflatten([o[0] for o in outs], spec)
+        new_e = tree_unflatten([o[1] for o in outs], spec)
+        return new_g, dict(opt_state, ef=new_e)
+
+    @staticmethod
+    def wire_bytes(grads) -> tuple[int, int]:
+        """(compressed, raw) bytes for the cross-pod reduction."""
+        leaves = tree_flatten(grads)[0]
+        raw = sum(g.numel() * g.element_size() for g in leaves)
+        comp = sum(g.numel() + 4 for g in leaves)
+        return comp, raw

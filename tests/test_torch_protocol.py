@@ -305,6 +305,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.models, repro_torch.models.convert, "
             "repro_torch.models.moe, repro_torch.models.rwkv6, "
             "repro_torch.models.rglru, repro_torch.models.encdec, "
+            "repro_torch.train.optim, repro_torch.train.compression, "
+            "repro_torch.train.loop, repro_torch.launch.train, "
             "chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
