@@ -14,7 +14,10 @@ the model stack serves Qwen3-4B, Qwen3-30B-A3B, RWKV-6 1.6B,
 RecurrentGemma-2B and Whisper-base at full width and depth in bf16, and
 the training stack trains Qwen3-4B at full width and depth, then the
 training driver crashes and repairs its checkpoint from a peer through
-the decode kernels (a fifth main path).
+the decode kernels (a fifth main path).  Then the same training and
+MoE serving run again on a device mesh over every card (DTensors placed
+by the reference's specs), held against the plain paths, and the dry
+run of every model cell runs on the production meshes' fake ranks.
 
     python3 chip_smoke.py [--seed N]
 
@@ -96,6 +99,22 @@ Phases, one line each:
      decode kernels (their launches counted: main path 5), then the driver,
      rerun with ``--peer-dir``, repairs, resumes from step 5 and
      finishes
+ 14. the device mesh over every card the process sees, one NCCL rank a
+     card, (1, N) over ("data", "model"), each plain path run again
+     beside its mesh path with deterministic algorithms on (the plain
+     training step and EP combine are not bit-reproducible otherwise):
+     (a) 13a's training for 3 steps, plain, then through the mesh
+     (parameters and AdamW state DTensors), each loss and each leaf's
+     update held against the plain path's at 13b's tolerances, whether
+     they are bit-equal, seconds a step, busy share and peak beside the
+     plain path's and 13a's; (b) Qwen3-30B-A3B in EP, plain, then on the
+     mesh (its all_to_all_singles on the model group): phase 12's
+     prompts prefilled and 8 decode steps fed phase 12's tokens, the
+     logits, greedy tokens and dropped pairs held against the plain
+     path's; (c) ``python -m repro_torch.launch.dryrun`` in subprocesses
+     at nice 19, started first: every cell on the pod mesh, and qwen3-4b
+     train_4k and kimi-k2 decode_32k on the multi-pod mesh, a line a
+     cell (argument bytes, FLOPs, collective bytes by kind)
 Launch counts are set to 0 just before each main path and read just after
 it; each main path runs under torch.profiler (CUDA activity only), which
 must trace exactly the counted launches of each kernel, op by op or in a
@@ -217,6 +236,17 @@ TRAIN_CASES = [
 DRIVER_ARGS = ["--arch", "starcoder2-3b", "--smoke", "--steps", "10",
                "--batch", "2", "--seq", "32", "--ckpt-every", "5"]
 TRAIN_CORRUPT = 2
+# phase 14: the mesh path.  14a trains as 13a for MESH_STEPS steps and 14b
+# serves MESH_SERVE_STEPS decode steps of phase 12's, held against them;
+# the dry run's pod cells run DRYRUN_JOBS at a time (the kimi-k2 train
+# cell, ~3 minutes of one core, sets the pace), all within DRYRUN_TIMEOUT
+# seconds of running (the time it is held stopped, :func:`_dryrun_held`,
+# not counted)
+MESH_STEPS, MESH_SERVE_STEPS = 3, 8
+MESH_SERVE_TOL = 1e-2      # bf16 logits, the mesh's against phase 12's
+MULTIPOD_CELLS = [("qwen3-4b", "train_4k"), ("kimi-k2-1t-a32b", "decode_32k")]
+DRYRUN_JOBS, DRYRUN_TIMEOUT = 6, 280
+DRYRUN = {"groups": [], "held_s": 0.0}   # 14c's process groups, held time
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "map_indices": ("src/repro_torch/csrc/map_indices.cu",
                     "src/repro/kernels/map_indices.py:41"),
@@ -1412,9 +1442,13 @@ def _tree_leaves(tree) -> list:
 
 def _pad_to_spec(states, spec):
     """Prefill states -> decode caches shaped as ``spec`` (the model's
-    ``cache_spec`` at the decode context): a K/V cache is zero-padded past
-    the prompt along its position axis; recurrent states, rolled windows
-    and cross-attention K/V already have their shapes."""
+    ``cache_spec`` meta tensors at the decode context): a K/V cache is
+    zero-padded past the prompt along its position axis; recurrent
+    states, rolled windows and cross-attention K/V already have their
+    shapes.  A DTensor cache (the mesh path) has its block padded and
+    keeps its placements: the position axis is split over no mesh
+    axis."""
+    from torch.distributed.tensor import DTensor
     if isinstance(states, dict):
         return {k: _pad_to_spec(v, spec[k]) for k, v in states.items()}
     if isinstance(states, (list, tuple)):
@@ -1425,19 +1459,28 @@ def _pad_to_spec(states, spec):
     check(extra > 0 and states.shape[:-3] == spec.shape[:-3] and
           states.shape[-2:] == spec.shape[-2:],
           f"state {tuple(states.shape)} does not pad to {tuple(spec.shape)}")
-    return torch.nn.functional.pad(states, (0, 0, 0, 0, 0, extra))
+    if not isinstance(states, DTensor):
+        return torch.nn.functional.pad(states, (0, 0, 0, 0, 0, extra))
+    check(not any(p.is_shard(states.dim() - 3) for p in states.placements),
+          f"a cache placed as {states.placements} splits its positions")
+    return DTensor.from_local(
+        torch.nn.functional.pad(states.to_local(), (0, 0, 0, 0, 0, extra)),
+        states.device_mesh, states.placements, run_check=False)
 
 
-def step_busy(fn) -> tuple[float, float, list]:
+def step_busy(fn, around=contextlib.nullcontext
+              ) -> tuple[float, float, list]:
     """(ms of kernels on the card, ms of wall time, the four kernels with
     the most summed time as (name, ms)) of one call of ``fn`` under
-    ``torch.profiler``, the card idle before and synchronised after;
-    kernel intervals are merged, so overlapping kernels count once."""
+    ``torch.profiler``, the card idle before and synchronised after, the
+    call inside the context ``around()`` (the trace's processing after
+    it); kernel intervals are merged, so overlapping kernels count
+    once."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, around():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1494,7 +1537,7 @@ def _init_on_card(cfg, seed: int):
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device=DEVICE)
     t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed))
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed))[0]
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     dtype = getattr(torch, cfg.dtype)
@@ -1538,7 +1581,7 @@ def _serve(model, params, cfg, batch, steps: int) -> dict:
     logits, the decode logits (B, steps, V), the ids fed (B, steps + 1)
     and the caches.  Checks finite logits and no padded-vocab id."""
     B, P = batch["tokens"].shape
-    spec = model.cache_spec(B, P + steps)
+    spec = model.cache_spec(B, P + steps)[0]
     _, warm = model.prefill(params, batch)
     model.decode_step(params, batch["tokens"][:, :1], _pad_to_spec(warm, spec),
                       torch.full((B,), P, device=DEVICE))
@@ -1587,7 +1630,7 @@ def _card_vs_cpu(small, seed: int, rng, S: int) -> float:
     encoder-decoder), the same weights drawn on the CPU."""
     from repro_torch.models import build_model
     cpu_model = build_model(small, device="cpu")
-    cpu_params = cpu_model.init(torch.Generator().manual_seed(seed))
+    cpu_params = cpu_model.init(torch.Generator().manual_seed(seed))[0]
     batch = {"tokens": torch.from_numpy(rng.integers(0, small.vocab,
                                                      size=(1, S)))}
     if small.frontend == "audio_stub":
@@ -1687,7 +1730,7 @@ def _moe_against_forward(model, params, prompts, ids) -> tuple[dict, list]:
     tp = build_model(model.cfg.scaled(moe_mode="tp"), device=DEVICE)
     seq = torch.cat([prompts, ids], dim=1)
     forced = _forward_logits(tp, params, {"tokens": seq}, P, P + steps)
-    spec = model.cache_spec(B, P + steps)
+    spec = model.cache_spec(B, P + steps)[0]
     _, states = tp.prefill(params, {"tokens": prompts})
     caches = _pad_to_spec(states, spec)
     del states
@@ -1710,7 +1753,7 @@ def _moe_against_forward(model, params, prompts, ids) -> tuple[dict, list]:
              "ep decode vs tp decode": gap(ep_dec, tp_dec)}, drops)
 
 
-def phase_serve_moe(seed: int) -> None:
+def phase_serve_moe(seed: int) -> dict:
     """Phase 12a: Qwen3-30B-A3B (``get_config`` unchanged: bf16, 48 layers,
     128 experts, top-8, EP at capacity factor 1.25) at full width and
     depth, weights from the port's init on the card.  SERVE_B prompts of
@@ -1728,7 +1771,10 @@ def phase_serve_moe(seed: int) -> None:
     where rounding (and so a flip) is ~10^5 times rarer: each decode within
     MOE_FP32_TOL of the forward, the EP decode from the EP prefill's
     caches only when that prefill dropped nothing.  Then the card against
-    the CPU in fp32 at full width and MOE_CARD_CPU_LAYERS layers."""
+    the CPU in fp32 at full width and MOE_CARD_CPU_LAYERS layers.
+    Returns, for phase 14b, the prompts, the EP prefill's last logits, the
+    first MESH_SERVE_STEPS decode steps' logits, the tokens fed and the
+    dropped pairs of those calls."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.moe import capacity
@@ -1754,7 +1800,7 @@ def phase_serve_moe(seed: int) -> None:
         pre_busy, pre_wall, pre_top = step_busy(
             lambda: model.prefill(params, {"tokens": prompts}))
         caches = _pad_to_spec(model.prefill(params, {"tokens": prompts})[1],
-                              model.cache_spec(B, P + steps))
+                              model.cache_spec(B, P + steps)[0])
         syncs = host_syncs(lambda: model.decode_step(
             params, ids[:, :1], caches, torch.full((B,), P, device=DEVICE)))
         del caches
@@ -1771,7 +1817,7 @@ def phase_serve_moe(seed: int) -> None:
         t0 = time.perf_counter()
         _, states = tp.prefill(params, {"tokens": prompts})
         tp_dec = _forced_decode(tp, params, _pad_to_spec(
-            states, tp.cache_spec(B, P + steps)), ids, P)
+            states, tp.cache_spec(B, P + steps)[0]), ids, P)
         torch.cuda.synchronize()
         tp_step_ms = (time.perf_counter() - t0) * 1e3 / steps
         ep_tp_gap = (run["decoded"] - tp_dec).abs().amax(dim=-1)
@@ -1779,6 +1825,11 @@ def phase_serve_moe(seed: int) -> None:
         peak = torch.cuda.max_memory_allocated()
     prefill_s, step_ms = run["prefill_s"], run["step_ms"]
     pre = drops["prefill"]
+    served = {"prompts": prompts.cpu(), "last": run["last"].cpu(),
+              "decoded": run["decoded"][:, :MESH_SERVE_STEPS].cpu(),
+              "ids": run["ids"][:, :MESH_SERVE_STEPS + 1].cpu(),
+              "drops": {"prefill": list(pre), "decode": drops["decode"][
+                  :cfg.n_layers * MESH_SERVE_STEPS]}}
     del params, run, model, tp
     torch.cuda.empty_cache()
     # the check: fp32, full width, MOE_FP32_LAYERS layers, the same tokens
@@ -1841,6 +1892,7 @@ def phase_serve_moe(seed: int) -> None:
               f"|diff| {fp32[what]} > {MOE_FP32_TOL}")
     check(cpu_diff <= CARD_CPU_TOL, f"{MOE_ARCH} card vs CPU fp32: max "
           f"|diff| {cpu_diff} > {CARD_CPU_TOL}")
+    return served
 
 
 def phase_serve_family(arch: str, seed: int) -> None:
@@ -1886,7 +1938,7 @@ def phase_serve_family(arch: str, seed: int) -> None:
     with torch.inference_mode():
         _, states = model.prefill(params, batch)
         dec = _forced_decode(model, params, _pad_to_spec(
-            states, model.cache_spec(B, P + steps)), ids, P)
+            states, model.cache_spec(B, P + steps)[0]), ids, P)
         del states
         fp32_diff = float((_forward_logits(model, params, seq, P, P + steps)
                            - dec).abs().max())
@@ -1940,7 +1992,15 @@ def _train_flops(cfg, n_params: int, B: int, S: int) -> float:
         6.0 * B * S * S * cfg.n_layers * cfg.n_heads * cfg.head_dim
 
 
-def phase_train(seed: int) -> None:
+def _train_opt(cfg):
+    """13a's optimizer settings: AdamW as configured, TRAIN_STEPS steps,
+    a 1-step warm-up to TRAIN_LR."""
+    from repro_torch.train.loop import make_opt_config
+    return dataclasses.replace(make_opt_config(cfg, total_steps=TRAIN_STEPS),
+                               warmup=1, lr=TRAIN_LR)
+
+
+def phase_train(seed: int) -> dict:
     """Phase 13a: ``get_config("qwen3-4b")`` trained at full width and depth
     on the card: bf16 weights from the port's init, remat, AdamW with
     fp32 state, TRAIN_STEPS steps of ``make_train_step`` on the driver's
@@ -1950,12 +2010,12 @@ def phase_train(seed: int) -> None:
     mode at "warn" (host syncs a step) and are timed by event pairs; step
     6 runs under the profiler (the card's busy share).  Checks: finite
     losses and gradient norms, the optimizer's step 6, every parameter
-    leaf moved."""
+    leaf moved.  Returns its losses, seconds a step, busy share and peak
+    for phase 14a."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.models import build_model
-    from repro_torch.train.loop import (init_train_state, make_opt_config,
-                                        make_train_step)
+    from repro_torch.train.loop import init_train_state, make_train_step
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(TRAIN_ARCH)
     check(cfg.remat and cfg.dtype == "bfloat16" and cfg.optimizer == "adamw"
@@ -1964,8 +2024,7 @@ def phase_train(seed: int) -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device=DEVICE)
-    opt_cfg = dataclasses.replace(
-        make_opt_config(cfg, total_steps=TRAIN_STEPS), warmup=1, lr=TRAIN_LR)
+    opt_cfg = _train_opt(cfg)
     t0 = time.perf_counter()
     params, opt_state, _ = init_train_state(
         model, opt_cfg, torch.Generator(device=DEVICE).manual_seed(seed))
@@ -2036,6 +2095,8 @@ def phase_train(seed: int) -> None:
         f"{_smi()}")
     del params, opt_state, model, before, leaves, step, metrics, batches
     torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": mean_s, "busy": busy_ms / wall_ms,
+            "peak": peak}
 
 
 @contextlib.contextmanager
@@ -2101,7 +2162,7 @@ def _train_both(cfg, opt_cfg, batches, microbatches=1, compression=False,
     from repro_torch.train.loop import make_train_step
     from repro_torch.train.optim import init_state
     cpu_params = build_model(cfg, device="cpu").init(
-        torch.Generator().manual_seed(seed))
+        torch.Generator().manual_seed(seed))[0]
     out = {}
     for dev, c in ((DEVICE, cfg.scaled(remat=True)), ("cpu", cfg)):
         model = build_model(c, device=dev)
@@ -2303,6 +2364,438 @@ def phase_train_repair(seed: int, decode) -> dict:
         f"(|diff| {abs(resumed - straight):.2e}); "
         f"{time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# phase 14: the device mesh
+def _mesh_batch(batch: dict, mesh) -> dict:
+    from repro_torch.launch.mesh import distribute
+    from repro_torch.models import batch_specs
+    return distribute(batch, batch_specs(batch, mesh), mesh)
+
+
+def _host_leaves(tree) -> list:
+    """Each leaf's full tensor copied to the host, one leaf at a time (a
+    collective for DTensors: every rank walks the same leaves)."""
+    return [(t.full_tensor() if hasattr(t, "full_tensor") else t)
+            .detach().to("cpu", copy=True) for t in _leaves_of(tree)]
+
+
+def _train_steps(mesh, seed: int, cfg) -> dict:
+    """13a's training of ``cfg`` (the same seed, batches and optimizer
+    settings) for MESH_STEPS steps, on ``mesh`` (None: the plain path):
+    step 2 timed by
+    an event pair, step 3 under the profiler.  Returns the losses, the
+    parameters before and after on the host, seconds a step, busy share,
+    the largest kernels, peak bytes and the optimizer state's bytes a
+    rank."""
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import init_train_state, make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, mesh, DEVICE)
+    opt_cfg = _train_opt(cfg)
+    params, state, _ = init_train_state(
+        model, opt_cfg, torch.Generator(device=DEVICE).manual_seed(seed))
+    p0 = _host_leaves(params) if mesh is None else None
+    step = make_train_step(model, opt_cfg)
+    batches = [synthetic_batch(cfg, t, TRAIN_B, TRAIN_S, DEVICE)
+               for t in range(MESH_STEPS)]
+    if mesh is not None:
+        batches = [_mesh_batch(b, mesh) for b in batches]
+    losses = []
+
+    def one(t):
+        nonlocal params, state
+        params, state, m = step(params, state, batches[t])
+        losses.append(m["loss"])
+
+    one(0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with _dryrun_held():
+        start.record()
+        one(1)
+        end.record()
+        end.synchronize()
+    busy_ms, wall_ms, top = step_busy(lambda: one(2), _dryrun_held)
+    out = {"losses": [float(v) for v in losses], "p0": p0,
+           "p3": _host_leaves(params),
+           "step_s": start.elapsed_time(end) / 1e3, "busy": busy_ms / wall_ms,
+           "top": top, "peak": torch.cuda.max_memory_allocated(),
+           "state_bytes": sum((t.to_local() if hasattr(t, "to_local")
+                               else t).numel() * t.element_size()
+                              for t in _leaves_of(state))}
+    del params, state, model, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _update_gap_list(plain: dict, meshed: dict) -> tuple[list, int]:
+    """Per leaf ||Δp_mesh - Δp_plain|| / ||Δp_plain|| (Δp = p3 - p0),
+    computed on the card a leaf at a time; and how many leaves are
+    bit-equal."""
+    gaps, equal = [], 0
+    for a0, a3, m3 in zip(plain["p0"], plain["p3"], meshed["p3"]):
+        a0, a3, m3 = (t.to(DEVICE) for t in (a0, a3, m3))
+        want = a3.float() - a0.float()
+        gap = torch.linalg.vector_norm(m3.float() - a0.float() - want,
+                                       dtype=torch.float64)
+        gaps.append(float(gap / torch.linalg.vector_norm(
+            want, dtype=torch.float64).clamp(min=1e-30)))
+        equal += bool(torch.equal(m3, a3))
+    return gaps, equal
+
+
+def _distribute_consuming(tree, specs, mesh):
+    """:func:`repro_torch.launch.mesh.distribute`, each full leaf dropped
+    from ``tree`` as soon as its block is placed (a 60 GB model on a card
+    needs no second copy of itself)."""
+    from repro_torch.launch.mesh import distribute_leaf, is_spec
+    keys = range(len(tree)) if isinstance(tree, list) else list(tree)
+    for k in keys:
+        if is_spec(specs[k]):
+            tree[k] = distribute_leaf(tree[k], specs[k], mesh)
+        else:
+            _distribute_consuming(tree[k], specs[k], mesh)
+    return tree
+
+
+def _serve_ep(mesh, seed: int, served: dict, cfg) -> dict:
+    """Qwen3-30B-A3B (``cfg``, phase 12's seed) in its EP mode, on
+    ``mesh`` (its all_to_all_singles on the model group) or plain
+    (None): phase 12's prompts prefilled, then MESH_SERVE_STEPS
+    decode steps fed phase 12's tokens at the decode context phase 12
+    padded its caches to.  Returns the last prefill logits and the
+    decode logits on the host, each EP call's dropped pairs, prefill
+    seconds, ms a decode step and the peak."""
+    from repro_torch.launch.mesh import distribute
+    from repro_torch.models import build_model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, mesh, DEVICE)
+    params, specs = model.init(torch.Generator(device=DEVICE)
+                               .manual_seed(seed))
+    if mesh is not None:
+        params = _distribute_consuming(params, specs, mesh)
+    B, P = SERVE_B, SERVE_PROMPT
+    ids = served["ids"].to(DEVICE)
+    da = model.mesh_axes["data"] if B % model.mesh_axes["data_size"] == 0 \
+        else None
+
+    def placed(t, spec):
+        return t if mesh is None else distribute(t, spec, mesh)
+
+    def full(t):
+        return (t if mesh is None else t.full_tensor()).to("cpu")
+
+    drops = {"prefill": [], "decode": []}
+    # DTensor's views do not run in inference mode
+    with torch.no_grad(), _dryrun_held():
+        model.moe_drops = drops["prefill"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, states = model.prefill(params, {"tokens": placed(
+            served["prompts"].to(DEVICE), (da, None))})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        caches = _pad_to_spec(states, model.cache_spec(B, P + SERVE_STEPS)[0])
+        del states
+        model.moe_drops = drops["decode"]
+        logits = []
+        t0 = time.perf_counter()
+        for t in range(MESH_SERVE_STEPS):
+            lg, caches = model.decode_step(
+                params, placed(ids[:, t:t + 1], (da, None)), caches,
+                placed(torch.full((B,), P + t, device=DEVICE), (da,)))
+            logits.append(lg[:, 0])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / MESH_SERVE_STEPS
+        out = {"last": full(last), "decoded": torch.stack(
+                   [full(lg) for lg in logits], dim=1),
+               "drops": {k: [int(c) for c in v] for k, v in drops.items()},
+               "prefill_s": prefill_s, "step_ms": step_ms,
+               "peak": torch.cuda.max_memory_allocated()}
+    model.moe_drops = None
+    del params, caches, model, logits, last
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dryrun_start(out_dir: str) -> list:
+    """14c's processes, started at once at the lowest CPU priority (they
+    and the cells they start take the cores 14a and 14b leave idle):
+    every pod cell (``--all``, DRYRUN_JOBS cells at a time) and the two
+    multi-pod cells."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+            out_dir]
+    cmds = [base + ["--all", "--mesh", "pod", "--jobs", str(DRYRUN_JOBS)]]
+    cmds += [base + ["--arch", a, "--shape", s, "--mesh", "multipod"]
+             for a, s in MULTIPOD_CELLS]
+    procs = []
+    for c in cmds:
+        procs.append(subprocess.Popen(c, env=env, cwd=SRC.parent, text=True,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE,
+                                      start_new_session=True))
+        os.setpriority(os.PRIO_PROCESS, procs[-1].pid, 19)
+    DRYRUN["groups"] = [p.pid for p in procs]
+    return procs
+
+
+def _signal_groups(sig) -> None:
+    import os
+    for g in DRYRUN["groups"]:
+        try:
+            os.killpg(g, sig)
+        except ProcessLookupError:    # the group has ended
+            pass
+
+
+@contextlib.contextmanager
+def _dryrun_held():
+    """14c's processes (each started in a process group of its own, with
+    the cells it starts) stopped while the block runs and resumed after,
+    so that 14a's and 14b's timed steps have the host's cores to
+    themselves: the mesh path is host-bound on DTensor's dispatch."""
+    import signal
+    _signal_groups(signal.SIGSTOP)
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if DRYRUN["groups"]:
+            DRYRUN["held_s"] += time.perf_counter() - t0
+        _signal_groups(signal.SIGCONT)
+
+
+def _stop(procs: list) -> None:
+    """Kill 14c's processes and the cells they started."""
+    import signal
+    _signal_groups(signal.SIGKILL)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    DRYRUN["groups"] = []
+
+
+def _dryrun_finish(procs: list, out_dir: str, t0: float) -> None:
+    """Wait for 14c's processes (killing them past DRYRUN_TIMEOUT seconds
+    from ``t0``, the time they were held not counted) and print a line a
+    cell."""
+    from repro_torch.configs import cells
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=max(1.0, DRYRUN_TIMEOUT + DRYRUN[
+                "held_s"] - (time.perf_counter() - t0)))
+            check(p.returncode == 0, f"the dry run {p.args[3:]} exited "
+                  f"{p.returncode}: {out[-1500:]} {err[-1500:]}")
+    finally:
+        _stop(procs)
+    smi = _smi()
+    todo = [(a, s, "pod") for a, s, _ in cells()] + \
+        [(a, s, "multipod") for a, s in MULTIPOD_CELLS]
+    for a, s, m in todo:
+        path = Path(out_dir) / f"{a}__{s}__{m}.json"
+        check(path.exists(), f"the dry run wrote no {path.name}")
+        cell = json.loads(path.read_text())
+        mem, coll = cell["memory"], cell["collectives"]
+        check(mem["argument_size_in_bytes"] > 0 and
+              cell["flops_per_device"] > 0, f"dry run {path.name}: {cell}")
+        kinds = ", ".join(f"{k} {v['bytes']:,} ({v['count']})"
+                          for k, v in coll.items())
+        say(f"phase 14c dry run {a} {s} {m} ({cell['devices']} ranks, "
+            f"traced in {cell['trace_s']} s): argument bytes a rank "
+            f"{mem['argument_size_in_bytes']:,}, output "
+            f"{mem['output_size_in_bytes']:,}, FLOPs a rank "
+            f"{cell['flops_per_device']:.4e}, collective operand bytes a "
+            f"rank (count) {kinds}; {smi}")
+    say(f"phase 14c dry run: {len(todo)} cells in "
+        f"{time.perf_counter() - t0:.1f} s ({DRYRUN_JOBS} pod cells at a "
+        f"time at nice 19, beside 14a and 14b; held stopped "
+        f"{DRYRUN['held_s']:.1f} s of it, while their steps were timed)")
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic algorithms on while the block runs.  Without them
+    cuDNN attention's backward and the EP combine's ``index_add_`` reorder
+    their atomic adds, and two runs of the plain training step differ
+    from step 2 on (by 3e-4, then 4e-3 in the loss, on the H100).  cuBLAS
+    asks for ``CUBLAS_WORKSPACE_CONFIG``; every GEMM here runs on one
+    stream, where its result does not depend on the workspace."""
+    import os
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _mesh_configs(world: int) -> tuple:
+    """14a's and 14b's configs: unchanged (bf16, full depth) on one card,
+    where the mesh path runs the plain path's very ops; across cards,
+    where the model ranks' partial sums round otherwise and bf16 routing
+    and lr-3e-3 updates amplify that (phases 12 and 14a), the held
+    checks' fp32 configs: 13b's 1 layer and phase 12's MOE_FP32_LAYERS,
+    full width."""
+    from repro_torch.configs import get_config
+    train, serve = get_config(TRAIN_ARCH), get_config(MOE_ARCH)
+    if world == 1:
+        return train, serve
+    return (train.scaled(n_layers=1, dtype="float32"),
+            serve.scaled(n_layers=MOE_FP32_LAYERS, dtype="float32"))
+
+
+def _paired_runs(mesh, seed: int, served: dict, world: int) -> dict:
+    """14a and 14b on one rank: the plain path, then the mesh path, each
+    once, deterministic (:func:`_deterministic`).  Each rank runs the
+    plain paths on its own card."""
+    train, serve = _mesh_configs(world)
+    with _deterministic():
+        return {"plain_train": _train_steps(None, seed, train),
+                "mesh_train": _train_steps(mesh, seed, train),
+                "plain_serve": _serve_ep(None, seed, served, serve),
+                "mesh_serve": _serve_ep(mesh, seed, served, serve)}
+
+
+def _mesh_worker(rank: int, world: int, seed: int, ref_dir: str,
+                 groups: list) -> None:
+    """14a and 14b on rank ``rank`` of ``world`` (one NCCL rank a card,
+    the mesh (1, world)); phase 12's inputs come from ``ref_dir``, rank 0
+    writes the results there.  Rank 0 holds 14c's process ``groups``
+    stopped while it times (the ranks' steps run in step)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    dist.init_process_group("nccl", init_method=f"file://{ref_dir}/init",
+                            rank=rank, world_size=world)
+    if rank == 0:
+        DRYRUN["groups"] = groups
+    try:
+        mesh = make_local_mesh(1, world, device=DEVICE)
+        out = _paired_runs(mesh, seed, torch.load(f"{ref_dir}/served.pt"),
+                           world)
+        if rank == 0:
+            torch.save(dict(out, held_s=DRYRUN["held_s"]),
+                       f"{ref_dir}/out.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(seed: int, trained: dict, served: dict) -> None:
+    """Phase 14: the mesh path, on a (1, N) mesh over every card the
+    process sees, one NCCL rank a card (on one card, this process's own
+    one-rank group, which ``make_local_mesh`` starts).  The plain path
+    and the mesh path each run once with deterministic algorithms on,
+    plain first, so the two can be bit-equal (:func:`_mesh_configs` says
+    at which configs): (a) 13a's training for MESH_STEPS steps, each
+    step's loss within HELD_LOSS_TOL and each leaf's update within
+    HELD_UPDATE_TOL of the plain path's (13b's tolerances), seconds a
+    step, busy share and peak beside the plain path's and 13a's; (b)
+    Qwen3-30B-A3B served in EP with phase 12's prompts and fed tokens,
+    the logits within MESH_SERVE_TOL (MOE_FP32_TOL in fp32) of the plain
+    path's, the same greedy tokens and dropped pairs; (c) the dry run of
+    every cell in subprocesses at the lowest CPU priority, started first
+    and run beside (a) and (b), held stopped while their steps are timed
+    (:func:`_dryrun_held`).  On one card it also prints how far the
+    deterministic plain runs lie from 13a's and phase 12's own."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import make_local_mesh
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        t_dry = time.perf_counter()
+        procs = _dryrun_start(tmp)
+        try:
+            if world == 1:
+                mesh = make_local_mesh(device=DEVICE)
+                try:
+                    runs = _paired_runs(mesh, seed, served, world)
+                finally:
+                    dist.destroy_process_group()
+            else:
+                torch.save(served, f"{tmp}/served.pt")
+                mp.spawn(_mesh_worker, args=(world, seed, tmp,
+                                             DRYRUN["groups"]), nprocs=world)
+                runs = torch.load(f"{tmp}/out.pt")
+                DRYRUN["held_s"] += runs["held_s"]
+        except BaseException:
+            _stop(procs)
+            raise
+        _report_mesh(runs, trained, served, world)
+        _dryrun_finish(procs, tmp, t_dry)
+    say(f"phase 14 {time.perf_counter() - t_phase:.1f} s")
+
+
+def _report_mesh(runs: dict, trained: dict, served: dict, world: int):
+    """14a's and 14b's lines and checks."""
+    train_cfg, serve_cfg = _mesh_configs(world)
+    where = (f"the mesh (1, {world}) over (data, model), {world} NCCL "
+             f"rank(s), deterministic algorithms on")
+    smi = _smi()
+    plain, meshed = runs["plain_train"], runs["mesh_train"]
+    gaps, equal = _update_gap_list(plain, meshed)
+    loss_gaps = [abs(a - b) for a, b in zip(meshed["losses"],
+                                            plain["losses"])]
+    own = ""
+    if world == 1:
+        rerun = [abs(a - b) for a, b in zip(plain["losses"],
+                                            trained["losses"])]
+        own = (f"; the plain losses against 13a's own (nondeterministic) "
+               f"{[f'{v:.1e}' for v in rerun]}, 13a {trained['step_s']:.4f} "
+               f"s a step, busy {trained['busy']:.3f}, peak "
+               f"{trained['peak']:,}")
+    say(f"phase 14a train {TRAIN_ARCH} ({train_cfg.n_layers} layers, "
+        f"{train_cfg.dtype}) on {where}, {MESH_STEPS} steps as 13a: losses "
+        f"{meshed['losses']}, plain {plain['losses']}, |diff| max "
+        f"{max(loss_gaps):.2e} (tol {HELD_LOSS_TOL}); updates p3 - p0 max "
+        f"gap {max(gaps):.2e} over {len(gaps)} leaves (tol "
+        f"{HELD_UPDATE_TOL}); bit-equal: losses {max(loss_gaps) == 0}, "
+        f"leaves {equal} of {len(gaps)}; step 2 mesh {meshed['step_s']:.4f} "
+        f"s, plain {plain['step_s']:.4f} s; step 3 under the profiler busy "
+        f"mesh {meshed['busy']:.3f}, plain {plain['busy']:.3f}, the mesh's "
+        f"largest {meshed['top']}; optimizer state "
+        f"{meshed['state_bytes']:,} bytes a rank; max_memory_allocated mesh "
+        f"{meshed['peak']:,}, plain {plain['peak']:,}{own}; {smi}")
+    check(max(loss_gaps) <= HELD_LOSS_TOL, f"14a loss gaps {loss_gaps}")
+    check(max(gaps) <= HELD_UPDATE_TOL, f"14a update gaps {gaps}")
+    ps, ms = runs["plain_serve"], runs["mesh_serve"]
+    tol = MESH_SERVE_TOL if world == 1 else MOE_FP32_TOL
+    gap = max(float((ms["last"] - ps["last"]).abs().max()),
+              float((ms["decoded"] - ps["decoded"]).abs().max()))
+    bit = bool(torch.equal(ms["last"], ps["last"]) and
+               torch.equal(ms["decoded"], ps["decoded"]))
+    tokens = ms["decoded"].argmax(-1)
+    same = bool(torch.equal(tokens, ps["decoded"].argmax(-1)))
+    own = ""
+    if world == 1:
+        p12 = max(float((ps["last"] - served["last"]).abs().max()),
+                  float((ps["decoded"] - served["decoded"]).abs().max()))
+        own = (f"; the plain run against phase 12's own (nondeterministic): "
+               f"logits max |diff| {p12:.3e}, tokens the same "
+               f"{bool(torch.equal(tokens, served['ids'][:, 1:]))}, dropped "
+               f"pairs {sum(served['drops']['prefill']):,}")
+    say(f"phase 14b serve {MOE_ARCH} ({serve_cfg.n_layers} layers, "
+        f"{serve_cfg.dtype}) through EP on {where}: phase 12's {SERVE_B} "
+        f"prompts of {SERVE_PROMPT} tokens, prefill mesh "
+        f"{ms['prefill_s']:.3f} s, plain {ps['prefill_s']:.3f} s; "
+        f"{MESH_SERVE_STEPS} decode steps fed phase 12's tokens, mesh "
+        f"{ms['step_ms']:.2f}, plain {ps['step_ms']:.2f} ms a step; mesh vs "
+        f"plain logits max |diff| {gap:.3e} (tol {tol}), bit-equal {bit}, "
+        f"greedy tokens the same {same}; dropped pairs prefill mesh "
+        f"{sum(ms['drops']['prefill']):,}, plain "
+        f"{sum(ps['drops']['prefill']):,}, decode "
+        f"{sum(ms['drops']['decode'])}; max_memory_allocated mesh "
+        f"{ms['peak']:,}, plain {ps['peak']:,}{own}; {smi}")
+    check(gap <= tol and same, "14b: the mesh's logits or tokens are not "
+          "the plain path's")
+    check(ms["drops"] == ps["drops"], f"14b dropped pairs {ms['drops']} "
+          f"are not the plain path's {ps['drops']}")
 
 
 def _tree_to(tree, device):
@@ -2561,17 +3054,18 @@ def main() -> int:
     rows = phase_times(diff, enc_items, wave, ckpt_wave, paths, path_ms, errs)
     del wave, ckpt_wave
     phase_serve(args.seed)
-    phase_serve_moe(args.seed)
+    served = phase_serve_moe(args.seed)
     for arch in FAMILIES:
         phase_serve_family(arch, args.seed)
     t13 = time.perf_counter()
-    phase_train(args.seed)
+    trained = phase_train(args.seed)
     phase_train_held(args.seed)
     phase_train_families(args.seed)
     paths["train_repair"] = phase_train_repair(args.seed, decode)
     for row in rows:
         row["launches"] += paths["train_repair"].get(row["name"], 0)
     say(f"phase 13 {time.perf_counter() - t13:.1f} s")
+    phase_mesh(args.seed, trained, served)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,8 +1,12 @@
 """End-to-end training driver with checkpoint/restart fault tolerance and
 Rateless-IBLT state repair.
 
-Port of ``repro/launch/train.py`` on one device (the card unless
-``--device cpu`` is asked for; without CUDA it raises):
+Port of ``repro/launch/train.py``.  As the reference, it trains on
+``make_local_mesh()``: a mesh of one rank on one device (the card unless
+``--device cpu`` is asked for; without CUDA it raises), its parameters
+and optimizer state DTensors placed by their specs.  The store holds each
+leaf's full tensor, so a store written on a mesh is the one written
+without; a restore places the leaves again:
 
     python -m repro_torch.launch.train --arch yi-9b --smoke --steps 50
     python -m repro_torch.launch.train --arch yi-9b --smoke --steps 50 \\
@@ -103,6 +107,18 @@ def recover(store, struct, peer_store=None, device="cuda"):
     return state, start, report
 
 
+def save_state(store, step: int, tree) -> None:
+    """``store.save`` of the full tensors of a tree of DTensors (every
+    rank takes part in the gathers; the first writes)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import full_tree
+    full = full_tree(tree)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        store.save(step, full)
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="yi-9b")
@@ -124,39 +140,46 @@ def main(argv=None):
     from repro_torch.checkpoint import CheckpointStore
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.core.decoder import resolve_device
-    from repro_torch.models import build_model
+    from repro_torch.launch.mesh import distribute, make_local_mesh
+    from repro_torch.models import batch_specs, build_model
     from repro_torch.train.loop import (init_train_state, make_opt_config,
                                         make_train_step)
+    from repro_torch.train.optim import state_specs
 
     device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    model = build_model(cfg, device)
+    mesh = make_local_mesh(device=device)
+    model = build_model(cfg, mesh, device)
     opt_cfg = make_opt_config(cfg, total_steps=args.steps)
     store = CheckpointStore(args.ckpt_dir)
 
-    params, opt_state, _ = init_train_state(
+    params, opt_state, specs = init_train_state(
         model, opt_cfg, torch.Generator(device=device).manual_seed(0))
     start = 0
     if store.manifest() is not None:
         # the fresh state is freed before the checkpoint's is loaded
-        struct = tree_map(lambda t: torch.empty_like(t, device="meta"),
+        struct = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                device="meta"),
                           {"params": params, "opt": opt_state})
         del params, opt_state
         peer = CheckpointStore(args.peer_dir) if args.peer_dir else None
         state, start, _ = recover(store, struct, peer, device)
+        state = distribute(state, {"params": specs,
+                                   "opt": state_specs(opt_cfg, specs)}, mesh)
         params, opt_state = state["params"], state["opt"]
 
     step_fn = make_train_step(model, opt_cfg)
     t0 = time.time()
     for t in range(start, args.steps):
         batch = synthetic_batch(cfg, t, args.batch, args.seq, device)
+        batch = distribute(batch, batch_specs(batch, mesh), mesh)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if t % 10 == 0 or t == args.steps - 1:
             print(f"step {t} loss {float(metrics['loss']):.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"({(time.time() - t0):.1f}s)", flush=True)
         if args.ckpt_every and (t + 1) % args.ckpt_every == 0:
-            store.save(t + 1, {"params": params, "opt": opt_state})
+            save_state(store, t + 1, {"params": params, "opt": opt_state})
             print(f"[ckpt] step {t + 1}", flush=True)
         if args.fail_at and t + 1 == args.fail_at:
             print("[failure-injection] simulating crash", flush=True)

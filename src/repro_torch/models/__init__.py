@@ -1,4 +1,5 @@
 from .convert import params_from_numpy
-from .model import build_model, input_specs
+from .model import batch_specs, build_model, input_specs, mesh_axes_of
 
-__all__ = ["build_model", "input_specs", "params_from_numpy"]
+__all__ = ["batch_specs", "build_model", "input_specs", "mesh_axes_of",
+           "params_from_numpy"]

@@ -24,9 +24,11 @@ def _leaf(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_numpy(tree, device="cuda"):
+def params_from_numpy(tree, device="cuda", mesh=None, specs=None):
     """Nested dicts / lists / tuples of numpy arrays -> the same tree of
-    tensors on ``device`` (tuples become lists, as the port's trees)."""
+    tensors on ``device`` (tuples become lists, as the port's trees); with
+    a ``mesh``, DTensors placed by ``specs`` (the tree ``init`` returns
+    beside the parameters)."""
     device = resolve_device(device)
 
     def walk(x):
@@ -36,4 +38,8 @@ def params_from_numpy(tree, device="cuda"):
             return [walk(v) for v in x]
         return _leaf(x, device)
 
-    return walk(tree)
+    out = walk(tree)
+    if mesh is None:
+        return out
+    from repro_torch.launch.mesh import distribute
+    return distribute(out, specs, mesh)

@@ -11,30 +11,40 @@ output.  The linear recurrence is diagonal; prefill runs it as a
 Hillis–Steele scan over the (a, b) pairs in float32, log2(S + 1) steps of
 whole-sequence ops, where the reference calls ``jax.lax.associative_scan``
 (the same combine in another tree, so the two agree to float rounding).
-Decode carries the (h, conv window) state.
+Decode carries the (h, conv window) state.  On a mesh (``ma``, see
+:mod:`.layers`) the projections, the conv and the gates run through
+DTensor, and the scan under :func:`.layers.shard_map` with the batch over
+the data axes and the channels over "model", as the reference shards
+``lam`` and the decode state.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .layers import _init
+from .layers import _init, batch_axes, shard_map
 
 C_CONST = 8.0
 CONV_W = 4
 
 
-def init_rglru(gen, cfg, dtype):
+def init_rglru(gen, cfg, dtype, fsdp: bool):
     d = cfg.d_model
     dr = cfg.d_rnn or d
-    return {"w_in": _init(gen, (d, dr), dtype=dtype),
-            "w_gate": _init(gen, (d, dr), dtype=dtype),
-            "conv": _init(gen, (CONV_W, dr), scale=0.5, dtype=dtype),
-            "w_r": _init(gen, (dr, dr), dtype=dtype),
-            "w_i": _init(gen, (dr, dr), dtype=dtype),
-            "lam": torch.full((dr,), 0.7, dtype=torch.float32,
-                              device=gen.device),
-            "w_out": _init(gen, (dr, d), dtype=dtype)}
+    row = "data" if fsdp else None
+    p = {"w_in": _init(gen, (d, dr), dtype=dtype),
+         "w_gate": _init(gen, (d, dr), dtype=dtype),
+         "conv": _init(gen, (CONV_W, dr), scale=0.5, dtype=dtype),
+         "w_r": _init(gen, (dr, dr), dtype=dtype),
+         "w_i": _init(gen, (dr, dr), dtype=dtype),
+         "lam": torch.full((dr,), 0.7, dtype=torch.float32,
+                           device=gen.device),
+         "w_out": _init(gen, (dr, d), dtype=dtype)}
+    s = {"w_in": (row, "model"), "w_gate": (row, "model"),
+         "conv": (None, "model"), "w_r": (None, "model"),
+         "w_i": (None, "model"), "lam": ("model",),
+         "w_out": ("model", row)}
+    return p, s
 
 
 def _conv1d(x, w, carry):
@@ -71,7 +81,7 @@ def linear_scan(a, b):
     return b
 
 
-def rglru_block(x, p, cfg, conv_carry, h0):
+def rglru_block(x, p, cfg, conv_carry, h0, ma=None):
     """x: (B,S,d).  Returns (out, conv_carry, h_last)."""
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")
     xin = x @ p["w_in"]
@@ -79,7 +89,8 @@ def rglru_block(x, p, cfg, conv_carry, h0):
     a, gated = _gates(xc, p)
     a_seq = torch.cat([torch.ones_like(h0[:, None], dtype=a.dtype), a], dim=1)
     b_seq = torch.cat([h0[:, None].float(), gated], dim=1)
-    h = linear_scan(a_seq, b_seq)[:, 1:]
+    seq = (batch_axes(ma, x.shape[0]), None, "model")
+    h = shard_map(linear_scan, ma, (seq, seq), (seq,))(a_seq, b_seq)[:, 1:]
     out = (h.to(x.dtype) * gate) @ p["w_out"]
     return out, conv_carry, h[:, -1]
 

@@ -12,24 +12,30 @@ current token.
 Prefill uses the chunkwise-parallel form in float32 (intra-chunk matmuls,
 then a loop over the chunks' states where the reference runs
 ``lax.scan``); decode is the O(1) recurrence.  The reference computes it
-with jnp einsums, outside any Pallas kernel.
+with jnp einsums, outside any Pallas kernel.  On a mesh (``ma``, see
+:mod:`.layers`) the projections run through DTensor and both
+recurrences, per head, under :func:`.layers.shard_map` with the batch
+over the data axes and the heads over "model" (the reference's specs of
+``u`` and of the decode state).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .layers import _init, rmsnorm
+from .layers import (_init, batch_axes, data_dims, mesh_placements, on_mesh,
+                     pin, rmsnorm, shard_map)
 
 CHUNK = 64
 LORA = 64
 CLAMP = 60.0
 
 
-def init_rwkv(gen, cfg, dtype):
+def init_rwkv(gen, cfg, dtype, fsdp: bool):
     d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
     dev = gen.device
-    return {
+    row = "data" if fsdp else None
+    p = {
         "wr": _init(gen, (d, d), dtype=dtype),
         "wk": _init(gen, (d, d), dtype=dtype),
         "wv": _init(gen, (d, d), dtype=dtype),
@@ -44,6 +50,19 @@ def init_rwkv(gen, cfg, dtype):
         "mu": _init(gen, (5, d), scale=0.2, dtype=torch.float32),
         "ln_x": torch.ones((d,), dtype=dtype, device=dev),
     }
+    s = {
+        "wr": (row, "model"), "wk": (row, "model"), "wv": (row, "model"),
+        "wg": (row, "model"), "wo": ("model", row),
+        "w_base": (None,), "w_lora_a": (row, None), "w_lora_b": (None, row),
+        "u": ("model", None), "mu": (None, None), "ln_x": (None,),
+    }
+    return p, s
+
+
+def head_spec(ma, B: int):
+    """(B, ..., H, ...) per-head tensors: batch over the data axes, heads
+    over "model"; as (batch, heads) entries of a spec."""
+    return batch_axes(ma, B), "model"
 
 
 def _projections(x, x_prev, p, cfg):
@@ -115,7 +134,7 @@ def wkv_step(r, k, v, logw, u, state):
     return o, state * w[..., None] + kv
 
 
-def rwkv_block(x, p, cfg, shift_in, state0):
+def rwkv_block(x, p, cfg, shift_in, state0, ma=None):
     """Full time-mix block over a sequence.
 
     x: (B, S, d); shift_in: (B, d) carry (last token of previous segment);
@@ -123,19 +142,31 @@ def rwkv_block(x, p, cfg, shift_in, state0):
     B, S, d = x.shape
     x_prev = torch.cat([shift_in[:, None], x[:, :-1]], dim=1)
     r, k, v, g, logw = _projections(x, x_prev, p, cfg)
-    o, state = wkv_chunked(r, k, v, logw, p["u"].float(), state0)
-    o = o.to(x.dtype) * g
-    o = rmsnorm(o.reshape(B, S, d), p["ln_x"], cfg.norm_eps)
+    da, hm = head_spec(ma, B)
+    seq, st = (da, None, hm, None), (da, hm, None, None)
+    grads = None
+    if on_mesh(ma):   # u, used on each data shard's rows
+        grads = (seq,) * 4 + (mesh_placements(ma, (hm, None),
+                                              data_dims(ma)), st)
+    o, state = shard_map(wkv_chunked, ma, (seq,) * 4 + ((hm, None), st),
+                         (seq, st), grads)(
+        r, k, v, logw, p["u"].float(), state0)
+    # whole over "model" before the norm over d (and its gradient too)
+    o = pin((o.to(x.dtype) * g).reshape(B, S, d), (da,), ma)
+    o = rmsnorm(o, p["ln_x"], cfg.norm_eps)
     return o @ p["wo"], x[:, -1], state
 
 
-def init_rwkv_ffn(gen, cfg, dtype):
+def init_rwkv_ffn(gen, cfg, dtype, fsdp: bool):
     """RWKV channel-mix: token-shifted squared-ReLU MLP with sigmoid gate."""
     d, f = cfg.d_model, cfg.d_ff
-    return {"wk": _init(gen, (d, f), dtype=dtype),
-            "wv": _init(gen, (f, d), dtype=dtype),
-            "wr": _init(gen, (d, d), dtype=dtype),
-            "mu": _init(gen, (2, d), scale=0.2, dtype=torch.float32)}
+    row = "data" if fsdp else None
+    return ({"wk": _init(gen, (d, f), dtype=dtype),
+             "wv": _init(gen, (f, d), dtype=dtype),
+             "wr": _init(gen, (d, d), dtype=dtype),
+             "mu": _init(gen, (2, d), scale=0.2, dtype=torch.float32)},
+            {"wk": (row, "model"), "wv": ("model", row), "wr": (row, None),
+             "mu": (None, None)})
 
 
 def rwkv_ffn(x, p, shift_in):
@@ -148,12 +179,15 @@ def rwkv_ffn(x, p, shift_in):
     return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1]
 
 
-def rwkv_decode(x, p, cfg, shift_in, state):
+def rwkv_decode(x, p, cfg, shift_in, state, ma=None):
     """One-token step.  x: (B, 1, d)."""
     B, _, d = x.shape
     r, k, v, g, logw = _projections(x, shift_in[:, None], p, cfg)
-    o, state = wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0],
-                        p["u"].float(), state)
-    o = o[:, None].to(x.dtype) * g
-    o = rmsnorm(o.reshape(B, 1, d), p["ln_x"], cfg.norm_eps)
+    da, hm = head_spec(ma, B)
+    one = (da, hm, None)
+    o, state = shard_map(wkv_step, ma, (one,) * 4 + ((hm, None),
+                         (da, hm, None, None)), (one, (da, hm, None, None)))(
+        r[:, 0], k[:, 0], v[:, 0], logw[:, 0], p["u"].float(), state)
+    o = pin((o[:, None].to(x.dtype) * g).reshape(B, 1, d), (da,), ma)
+    o = rmsnorm(o, p["ln_x"], cfg.norm_eps)
     return o @ p["wo"], x[:, 0], state

@@ -35,8 +35,8 @@ class ErrorFeedbackInt8:
     """
 
     def init(self, params):
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device), params)
+        return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                        params)
 
     def apply(self, grads, opt_state):
         ef = opt_state.get("ef")

@@ -7,6 +7,15 @@ parameter leaves (``torch.autograd.grad``) where the reference takes
 ``jax.value_and_grad``; microbatches run one after another where it
 scans them.  The update is written in place (:func:`.optim.apply_updates`),
 and a step reads nothing back to the host.
+
+On a device mesh (a model built with ``build_model(cfg, mesh)``) the
+parameters and state are DTensors and the step is the same code: each
+gradient comes back from autograd as DTensor leaves it (partial sums over
+the data axes where the batch was split) and is reduced by placement,
+redistributed to its parameter's placements (an all-reduce, or a
+reduce-scatter for a weight sharded over "data"); a microbatch is a
+contiguous slice of the global batch, as in the reference, placed as the
+batch was (:func:`_rows`).
 """
 from __future__ import annotations
 
@@ -28,15 +37,38 @@ def loss_and_grads(model, params, batch):
     metrics detached, the gradients in the parameters' tree (zeros for a
     leaf the loss does not reach, as ``jax.grad`` gives).  Marks every
     parameter leaf ``requires_grad``."""
+    from torch.distributed.tensor import DTensor
     leaves, spec = tree_flatten(params)
     for p in leaves:
         p.requires_grad_()
     loss, metrics = model.loss(params, batch)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                 materialize_grads=True)
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if isinstance(g, DTensor) else g for g, p in zip(grads, leaves)]
     metrics = {k: v.detach() if torch.is_tensor(v) else v
                for k, v in metrics.items()}
-    return loss.detach(), metrics, tree_unflatten(list(grads), spec)
+    return loss.detach(), metrics, tree_unflatten(grads, spec)
+
+
+def _rows(v, lo: int, hi: int):
+    """Rows lo:hi of a batch leaf.  A DTensor's rows are gathered over the
+    axes that split them (the batch's tokens, not a weight), sliced, and
+    split again where the slice divides over those axes (else left
+    whole), as :func:`repro_torch.models.batch_specs` places a batch.
+    DTensor's own slice of a split dim leaves the rows whole on every
+    rank, which its vocab-parallel embedding then cannot re-split."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(v, DTensor):
+        return v[lo:hi]
+    mesh, placements = v.device_mesh, v.placements
+    out = v.redistribute(mesh, [Replicate()] * mesh.ndim)[lo:hi]
+    ways = 1
+    for i, pl in enumerate(placements):
+        if pl.is_shard(0):
+            ways *= mesh.size(i)
+    return out.redistribute(mesh, placements) if (hi - lo) % ways == 0 \
+        else out
 
 
 def _mean(values):
@@ -47,6 +79,12 @@ def _mean(values):
     dev = next(v.device for v in values if torch.is_tensor(v))
     return torch.stack([v if torch.is_tensor(v) else
                         torch.full((), v, device=dev) for v in values]).mean()
+
+
+def _plain(v):
+    """A metric as a plain tensor (a replicated DTensor's local value)."""
+    from torch.distributed.tensor import DTensor
+    return v.full_tensor() if isinstance(v, DTensor) else v
 
 
 def make_train_step(model, opt_cfg: OptConfig, microbatches: int = 1,
@@ -66,7 +104,7 @@ def make_train_step(model, opt_cfg: OptConfig, microbatches: int = 1,
         n = b // microbatches
         acc, losses, metricses = None, [], []
         for i in range(microbatches):
-            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            mb = {k: _rows(v, i * n, (i + 1) * n) for k, v in batch.items()}
             loss, metrics, grads = loss_and_grads(model, params, mb)
             parts = [(g.to(adt) / microbatches).to(adt)
                      for g in tree_flatten(grads)[0]]
@@ -93,17 +131,20 @@ def make_train_step(model, opt_cfg: OptConfig, microbatches: int = 1,
             opt_cfg, params, grads, opt_state)
         metrics = dict(metrics)
         metrics.update(opt_metrics, loss=loss)
-        return params, opt_state, metrics
+        return params, opt_state, {k: _plain(v) for k, v in metrics.items()}
 
     return train_step
 
 
 def init_train_state(model, opt_cfg: OptConfig, gen: torch.Generator):
     """(params, opt_state, specs): ``model.init(gen)`` with every leaf
-    marked ``requires_grad``, and zero optimizer state beside it.  The
-    reference also returns the parameters' PartitionSpecs; the port has
-    no device mesh yet, so ``specs`` is None."""
-    params = model.init(gen)
+    marked ``requires_grad`` (on the model's mesh, DTensors placed by the
+    specs), zero optimizer state beside it, and the parameters' specs."""
+    params, specs = model.init(gen)
+    mesh = model.mesh_axes["mesh"]
+    if mesh is not None:
+        from repro_torch.launch.mesh import distribute
+        params = distribute(params, specs, mesh)
     for p in tree_flatten(params)[0]:
         p.requires_grad_()
-    return params, init_state(opt_cfg, params), None
+    return params, init_state(opt_cfg, params), specs

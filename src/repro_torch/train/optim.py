@@ -10,8 +10,14 @@ transients; a leaf above ``_CHUNK_ELEMS`` elements with ``ndim >= 3``
 takes its float32 math one slice of its leading (stacked-layers) axis at
 a time, where the reference uses ``lax.map``.  The learning rate and the
 gradient norm stay 0-dim tensors on the parameters' device: a step reads
-nothing back to the host.  ``state_specs`` (PartitionSpecs) waits for
-the port's device mesh.
+nothing back to the host.
+
+On a device mesh the parameters and gradients are DTensors, and so is
+the state: :func:`state_specs` mirrors the parameters' specs onto it (the
+factored ``vr``/``vc`` drop the last and the second-to-last axes), and
+:func:`init_state` places each state leaf by it.  The update runs
+through DTensor, each rank on its own blocks; the gradient norm and
+Adafactor's means over sharded axes are sums over the ranks.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ import math
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_map
+
+from repro_torch.launch.mesh import is_spec, placements
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,31 +63,80 @@ def _factored_dims(shape):
     return None
 
 
+def _leaf_specs(cfg: OptConfig, sp) -> dict:
+    """The state specs of one parameter whose spec is ``sp``."""
+    if cfg.kind == "adamw":
+        return {"m": sp, "v": sp}
+    # factored dims drop the last / second-to-last axes
+    if len(sp) >= 2:
+        st = {"vr": sp[:-2] + (sp[-2],), "vc": sp[:-2] + (sp[-1],)}
+    else:
+        st = {"v": sp}
+    if cfg.momentum:
+        st["m"] = sp
+    return st
+
+
+def state_specs(cfg: OptConfig, param_specs):
+    """Specs of the optimizer state, mirroring the params'."""
+    return {"step": (),
+            "opt": tree_map(lambda sp: _leaf_specs(cfg, sp), param_specs,
+                            is_leaf=is_spec)}
+
+
+def spec_of(t) -> tuple:
+    """The spec a DTensor is placed by (the inverse of
+    :func:`repro_torch.launch.mesh.placements`)."""
+    entries = [()] * t.dim()
+    for name, pl in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if pl.is_shard():
+            entries[pl.dim] += (name,)
+    return tuple(None if not e else e[0] if len(e) == 1 else e
+                 for e in entries)
+
+
+def _zeros(p, shape, dtype, spec):
+    """Zeros of ``shape`` beside parameter ``p``: on its device, and on a
+    mesh a DTensor placed by ``spec`` (each rank allocating its block)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=dtype, device=p.device)
+    from torch.distributed.tensor import zeros
+    return zeros(shape, dtype=dtype, device_mesh=p.device_mesh,
+                 placements=placements(spec, p.device_mesh))
+
+
 def init_state(cfg: OptConfig, params):
-    """Zero optimizer state for ``params``, on their device."""
+    """Zero optimizer state for ``params``, on their device (on their
+    mesh, placed by :func:`state_specs`)."""
     dt = getattr(torch, cfg.state_dtype)
 
-    def zeros(p, dtype, shape=None):
-        return torch.zeros(p.shape if shape is None else shape, dtype=dtype,
-                           device=p.device)
-
     def per_leaf(p):
+        from torch.distributed.tensor import DTensor
+        psp = spec_of(p) if isinstance(p, DTensor) else (None,) * p.dim()
+        sp = _leaf_specs(cfg, psp)
         if cfg.kind == "adamw":
-            return {"m": zeros(p, dt), "v": zeros(p, dt)}
+            return {"m": _zeros(p, p.shape, dt, psp),
+                    "v": _zeros(p, p.shape, dt, psp)}
         fd = _factored_dims(p.shape)
         if fd is None:
-            st = {"v": zeros(p, torch.float32)}
+            st = {"v": _zeros(p, p.shape, torch.float32, psp)}
         else:
             r, c = fd
-            st = {"vr": zeros(p, torch.float32, p.shape[:c] + p.shape[c + 1:]),
-                  "vc": zeros(p, torch.float32, p.shape[:r] + p.shape[r + 1:])}
+            st = {"vr": _zeros(p, p.shape[:c] + p.shape[c + 1:],
+                               torch.float32, sp["vr"]),
+                  "vc": _zeros(p, p.shape[:r] + p.shape[r + 1:],
+                               torch.float32, sp["vc"])}
         if cfg.momentum:
-            st["m"] = zeros(p, dt)
+            st["m"] = _zeros(p, p.shape, dt, psp)
         return st
 
-    device = tree_flatten(params)[0][0].device
-    return {"step": torch.zeros((), dtype=torch.int32, device=device),
-            "opt": tree_map(per_leaf, params)}
+    leaf = tree_flatten(params)[0][0]
+    step = torch.zeros((), dtype=torch.int32, device=leaf.device)
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        step = _zeros(leaf, (), torch.int32, ())
+    return {"step": step, "opt": tree_map(per_leaf, params)}
 
 
 # Leaves above this many elements get their fp32 optimizer math chunked
@@ -88,14 +145,24 @@ def init_state(cfg: OptConfig, params):
 _CHUNK_ELEMS = 1 << 26
 
 
+def _sharded_dim0(t) -> bool:
+    """Whether a DTensor's leading dim is sharded (split by its block
+    then, not in slices of the whole)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor) and any(
+        p.is_shard(0) for p in t.placements)
+
+
 def _global_norm(grads) -> torch.Tensor:
     def leaf_sq(g):
-        if g.numel() > _CHUNK_ELEMS and g.dim() >= 2:
+        if g.numel() > _CHUNK_ELEMS and g.dim() >= 2 and \
+                not _sharded_dim0(g):
             # the sum of each slice of the leading axis, as the reference's
             # lax.map, a block of slices at a time (float32 copies of at
             # most _CHUNK_ELEMS elements)
             rows = max(1, _CHUNK_ELEMS // g[0].numel())
-            return torch.cat([b.float().square().flatten(1).sum(1)
+            dims = tuple(range(1, g.dim()))
+            return torch.cat([b.float().square().sum(dims)
                               for b in g.split(rows)]).sum()
         return g.float().square().sum()
 

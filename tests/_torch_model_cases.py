@@ -132,7 +132,7 @@ def stack_logits(model, params, batch):
 
 def zero_caches(model, n):
     """Zero decode caches of n positions from ``model.cache_spec``."""
-    spec = model.cache_spec(B, n)
+    spec = model.cache_spec(B, n)[0]
 
     def walk(x):
         if isinstance(x, dict):

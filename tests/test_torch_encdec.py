@@ -69,7 +69,7 @@ def test_decode_matches_forward():
     cross-attention K/V of the forward's encoding in the caches."""
     cfg = configs.smoke_config(ARCH)
     model = build_model(cfg, device="cpu")
-    params = model.init(torch.Generator().manual_seed(3))
+    params = model.init(torch.Generator().manual_seed(3))[0]
     batch = {k: torch.from_numpy(v) for k, v in
              batch_of(cfg, np.random.default_rng(3)).items()}
     full = decoder_logits(model, params, batch)
@@ -88,19 +88,19 @@ def test_input_specs_and_init_match_reference(mesh):
     tree, against the reference's."""
     cfg, ref_cfg = configs.smoke_config(ARCH), ref_configs.smoke_config(ARCH)
     shape = configs.ShapeConfig("tiny", "train", 24, 2)
-    got = input_specs(cfg, shape, device="cpu")
+    got = input_specs(cfg, shape)[0]
     want, _ = ref_input_specs(ref_cfg, shape, mesh)
     assert list(got) == list(want)
     assert [s for s, _ in spec_shapes(got)] == \
         [s for s, _ in spec_shapes(want)]
     assert got["frames"].dtype == torch.bfloat16
     shape = configs.ShapeConfig("tiny", "decode", 24, 2)
-    got = input_specs(cfg, shape, device="cpu")["caches"]
+    got = input_specs(cfg, shape)[0]["caches"]
     want, _ = ref_input_specs(ref_cfg, shape, mesh)
     assert spec_shapes(got) == spec_shapes(want["caches"])
     want = jax.eval_shape(lambda k: ref_build_model(ref_cfg, mesh).init(k)[0],
                           jax.random.key(0))
-    got = build_model(cfg, device="cpu").init(torch.Generator())
+    got = build_model(cfg, device="cpu").init(torch.Generator())[0]
     assert spec_shapes(got) == spec_shapes(want)
 
 

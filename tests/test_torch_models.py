@@ -92,7 +92,7 @@ def test_every_arch_builds_prefills_and_decodes(arch):
     on caches shaped by ``cache_spec``, and the logits are finite."""
     cfg = configs.smoke_config(arch)
     model = build_model(cfg, device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
+    params = model.init(torch.Generator().manual_seed(0))[0]
     rng = np.random.default_rng(0)
     batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)))}
     n = 8
@@ -103,7 +103,7 @@ def test_every_arch_builds_prefills_and_decodes(arch):
         batch["frames"] = torch.randn(2, cfg.encoder_frames, cfg.d_model)
     last, states = model.prefill(params, batch)
     assert tuple(last.shape) == (2, 1, cfg.padded_vocab)
-    spec = model.cache_spec(2, n + 2)
+    spec = model.cache_spec(2, n + 2)[0]
     assert len(_leaves(states)) == len(_leaves(spec))
     caches = _zeros_like(spec)
     tok = batch["tokens"][:, -1:]
@@ -318,13 +318,13 @@ def test_decode_matches_forward(arch):
     held against the reference above)."""
     cfg = smoke(arch, configs)
     model = build_model(cfg, device="cpu")
-    params = model.init(torch.Generator().manual_seed(3))
+    params = model.init(torch.Generator().manual_seed(3))[0]
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, size=(B, S)))
     h, _, _ = model._stack(params, model._embed_inputs(params,
                                                        {"tokens": toks}))
     full = model.logits(params, h)
-    spec = model.cache_spec(B, S)
+    spec = model.cache_spec(B, S)[0]
     caches = {part: [{k: torch.zeros(t.shape, dtype=t.dtype)
                       for k, t in d.items()} for d in spec[part]]
               for part in ("periods", "tail")}
@@ -342,7 +342,7 @@ def test_local_attention_window():
     cfg = dataclasses.replace(configs.smoke_config("recurrentgemma-2b"),
                               block_pattern=("local",), n_layers=1, window=4)
     model = build_model(cfg, device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
+    params = model.init(torch.Generator().manual_seed(0))[0]
     t1 = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, size=(1, 12)))
     t2 = t1.clone()
@@ -362,7 +362,7 @@ def test_input_specs_and_cache_spec_match_reference(mesh):
     reference's ShapeDtypeStructs give them."""
     cfg = smoke("qwen3-4b-local", configs)
     shape = configs.ShapeConfig("tiny", "decode", 64, 2)
-    got = input_specs(cfg, shape, device="cpu")
+    got = input_specs(cfg, shape)[0]
     want, _ = ref_input_specs(smoke("qwen3-4b-local", ref_configs), shape,
                               mesh)
     assert [tuple(t.shape) for t in _leaves(got)] == \

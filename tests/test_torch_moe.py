@@ -121,7 +121,7 @@ def _stack_pair(cfg_a, cfg_b, seed, S_):
     """The port's hidden states and aux loss of two configs on the same
     parameters and tokens."""
     a, b = build_model(cfg_a, device="cpu"), build_model(cfg_b, device="cpu")
-    params = a.init(torch.Generator().manual_seed(seed))
+    params = a.init(torch.Generator().manual_seed(seed))[0]
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg_a.vocab, size=(2, S_)))
     x = a._embed_inputs(params, {"tokens": toks})
@@ -170,7 +170,7 @@ def test_decode_matches_dropless_forward():
     cfg = configs.smoke_config("qwen3-moe-30b-a3b")
     ep = build_model(cfg, device="cpu")
     tp = build_model(cfg.scaled(moe_mode="tp"), device="cpu")
-    params = ep.init(torch.Generator().manual_seed(3))
+    params = ep.init(torch.Generator().manual_seed(3))[0]
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, size=(B, S)))
     full = stack_logits(tp, params, {"tokens": toks})
@@ -189,7 +189,7 @@ def test_input_specs_and_init_match_reference(arch, mesh):
     cfg, ref_cfg = configs.smoke_config(arch), ref_configs.smoke_config(arch)
     for kind in ("prefill", "decode"):
         shape = configs.ShapeConfig("tiny", kind, 32, 2)
-        got = input_specs(cfg, shape, device="cpu")
+        got = input_specs(cfg, shape)[0]
         want, _ = ref_input_specs(ref_cfg, shape, mesh)
         if kind == "decode":
             got, want = got["caches"], want["caches"]
@@ -200,5 +200,5 @@ def test_input_specs_and_init_match_reference(arch, mesh):
     from repro.models import build_model as ref_build
     want = jax.eval_shape(lambda k: ref_build(ref_cfg, mesh).init(k)[0],
                           jax.random.key(0))
-    got = build_model(cfg, device="cpu").init(torch.Generator())
+    got = build_model(cfg, device="cpu").init(torch.Generator())[0]
     assert spec_shapes(got) == spec_shapes(want)

@@ -307,6 +307,7 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.models.rglru, repro_torch.models.encdec, "
             "repro_torch.train.optim, repro_torch.train.compression, "
             "repro_torch.train.loop, repro_torch.launch.train, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
             "chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "

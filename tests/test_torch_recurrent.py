@@ -189,7 +189,7 @@ def test_decode_matches_forward(arch):
     forward is held against the reference above)."""
     cfg = configs.smoke_config(arch)
     model = build_model(cfg, device="cpu")
-    params = model.init(torch.Generator().manual_seed(3))
+    params = model.init(torch.Generator().manual_seed(3))[0]
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, size=(B, S)))
     full = stack_logits(model, params, {"tokens": toks})
@@ -205,7 +205,7 @@ def test_input_specs_and_init_match_reference(arch, mesh):
     cfg, ref_cfg = configs.smoke_config(arch), ref_configs.smoke_config(arch)
     for kind in ("prefill", "decode"):
         shape = configs.ShapeConfig("tiny", kind, 64, 2)
-        got = input_specs(cfg, shape, device="cpu")
+        got = input_specs(cfg, shape)[0]
         want, _ = ref_input_specs(ref_cfg, shape, mesh)
         if kind == "decode":
             got, want = got["caches"], want["caches"]
@@ -213,8 +213,8 @@ def test_input_specs_and_init_match_reference(arch, mesh):
             [s for s, _ in spec_shapes(want)]
     for dtype in ("float32", "bfloat16"):
         got = input_specs(cfg.scaled(dtype=dtype),
-                          configs.ShapeConfig("tiny", "decode", 64, 2),
-                          device="cpu")["caches"]
+                          configs.ShapeConfig("tiny", "decode", 64, 2))[0][
+                              "caches"]
         want, _ = ref_input_specs(ref_cfg.scaled(dtype=dtype),
                                   configs.ShapeConfig("tiny", "decode", 64,
                                                       2), mesh)
@@ -222,5 +222,5 @@ def test_input_specs_and_init_match_reference(arch, mesh):
     want = jax.eval_shape(
         lambda k: ref_build_model(ref_cfg, mesh).init(k)[0],
         jax.random.key(0))
-    got = build_model(cfg, device="cpu").init(torch.Generator())
+    got = build_model(cfg, device="cpu").init(torch.Generator())[0]
     assert spec_shapes(got) == spec_shapes(want)

@@ -263,7 +263,7 @@ def test_remat_same_grads_and_drops(arch):
     out = {}
     for remat in (False, True):
         model = build_model(cfg.scaled(remat=remat), device="cpu")
-        params = model.init(torch.Generator().manual_seed(2))
+        params = model.init(torch.Generator().manual_seed(2))[0]
         model.moe_drops = []
         loss, _, grads = loop.loss_and_grads(model, params, batch)
         out[remat] = (loss, leaves(grads), [int(c) for c in model.moe_drops])
@@ -299,7 +299,7 @@ def test_stacked_leaves_split_once(remat):
     a layer)."""
     cfg = configs.smoke_config("qwen3-4b").scaled(remat=remat)
     model = build_model(cfg, device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
+    params = model.init(torch.Generator().manual_seed(0))[0]
     for p in leaves(params):
         p.requires_grad_()
     batch = {k: torch.from_numpy(v) for k, v in _grad_batch(cfg, 1).items()}
@@ -396,6 +396,6 @@ def test_init_train_state_marks_leaves_and_returns_no_specs():
     model = build_model(cfg, device="cpu")
     params, state, specs = loop.init_train_state(
         model, loop.make_opt_config(cfg), torch.Generator().manual_seed(0))
-    assert specs is None
+    assert specs == model.init(torch.Generator())[1]
     assert all(p.requires_grad for p in leaves(params))
     assert state["step"].dtype == torch.int32 and int(state["step"]) == 0
