@@ -39,7 +39,7 @@ DRIVER = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
           "--seq", "32", "--ckpt-every", "5", "--device", "cpu"]
 
 
-def run(args, timeout=300, **env):
+def run(args, timeout=120, **env):
     e = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **env)
     return subprocess.run(args, env=e, cwd=ROOT, capture_output=True,
                           text=True, timeout=timeout)
